@@ -8,15 +8,19 @@ busy share and the kernels that take most of its time.
 
 Phases, any failure exits non-zero:
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: `make -C native` (host EC for the CRS) and kernels A to D from
-   quill_tpu_torch/csrc with nvcc;
+2. build: kernels A to H from quill_tpu_torch/csrc with nvcc (one process
+   per source, all at once) and the host C libraries of native/ (G1
+   arithmetic for the CRS, BLAKE3) with gcc;
 3. kernels: each kernel against its plain twin on the card, exactly, at
    the shapes the 2^16-row prove gives it, with the times of the kernel
-   wrappers and of the plain twins; the 2^18-point MSMs also against the
-   native host MSM on the tau CRS;
+   wrappers and of the plain twins and the least time the card could take
+   for the same work; the 2^18-point MSMs also against the native host
+   MSM on the tau CRS; the small-route MSM of 4 x 2^16 points against
+   kernels C and D on the same scalars;
 4. main path: TorchEngine -> setup -> HyperPlonk.preprocess -> prove ->
-   serialize_proof -> verify, with the launch count of every kernel; at
-   2^16 rows the proof must be 17,936 bytes with the pinned sha256.
+   serialize_proof -> verify, with the launch count of every kernel and
+   the MSMs each route took; at 2^16 rows the proof must be 17,936 bytes
+   with the pinned sha256.
 The line before the last is the per-kernel JSON record, the last line the
 device record.
 """
@@ -34,6 +38,18 @@ LOG2_ROWS = 16
 PINNED_LEN = 17936
 PINNED_SHA256 = ("d596d8df073be57fa253899e342fecc900fbb68931588b82"
                  "dacf8c9cf84060c6")
+
+
+# bound model (`bound`): a CIOS Montgomery product of bn254.cuh is
+# 8 x (8 + 8) 32x32->64-bit multiply-adds, each a low and a high 32-bit
+# IMAD, plus 8 low products for m: 264 IMADs.  Hopper issues 64 32-bit
+# IMADs per SM per clock; HBM3 on the H100 SXM moves 3.35 TB/s.
+IMADS_PER_PRODUCT = 264
+IMADS_PER_SM_CLOCK = 64
+HBM_BYTES_PER_S = 3.35e12
+PT = 96                    # bytes of one (3, 8) int32 projective point
+AFF = 64                   # bytes of one (2, 8) int32 affine point
+FE = 32                    # bytes of one field element
 
 
 def log(*a):
@@ -57,23 +73,44 @@ def device_phase():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
-    return torch.cuda.get_device_name(0)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    card = dict(kind=torch.cuda.get_device_name(0),
+                sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                clock_mhz=float(clock.stdout.strip().splitlines()[0]))
+    log(f"card: {card['sms']} SMs, max SM clock {card['clock_mhz']:.0f} MHz")
+    return card
+
+
+def bound(card, products: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the field products'
+    IMADs over the int32 multiply-add rate and the bytes over HBM's rate."""
+    ops_ms = 1e3 * products * IMADS_PER_PRODUCT / (
+        card["sms"] * IMADS_PER_SM_CLOCK * card["clock_mhz"] * 1e6)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    if ops_ms >= bytes_ms:
+        return dict(bound_ms=ops_ms, bound_by="operations")
+    return dict(bound_ms=bytes_ms, bound_by="bytes")
 
 
 def build_phase():
-    from quill_tpu.ec import native_ec
+    from quill_tpu_torch.ec import native_ec
+    from quill_tpu_torch.hashing import blake3
     from quill_tpu_torch.kernels import build
 
     t0 = time.time()
-    subprocess.run(["make", "-s", "-C", os.path.join(ROOT, "native")],
-                   check=True)
-    t_native = time.time() - t0
-    t0 = time.time()
     paths = build.build()
     t_cuda = time.time() - t0
+    t0 = time.time()
+    native = [build.native_lib(n) for n in build.NATIVE_LIBS]
+    t_native = time.time() - t0
     check(native_ec.available(), "native EC backend failed to load")
-    log(f"build: native {t_native:.1f}s, CUDA kernels {t_cuda:.1f}s "
-        f"({', '.join(p.name for p in paths.values())})")
+    check(bool(blake3._load_native()), "native BLAKE3 failed to load")
+    log(f"build: CUDA kernels {t_cuda:.1f}s "
+        f"({', '.join(p.name for p in paths.values())}), host C "
+        f"{t_native:.1f}s ({', '.join(p.name for p in native)})")
 
 
 def cuda_ms(fn, reps=3):
@@ -130,20 +167,23 @@ def points_err(ps, qs) -> int:
         default=0)
 
 
-def kernel_phase(engine, kzg, rng):
+def kernel_phase(engine, kzg, rng, card):
     """Each kernel against its plain twin at the shapes the 2^16-row prove
     gives it (4 columns make its merged tables, its largest products and
-    its MSMs 2^18 long).  Times are of the kernel wrappers alone."""
+    its C + D MSMs 2^18 long; its small-route MSMs are batches of 4 over
+    2^16 points).  Times are of the kernel wrappers alone."""
     import torch
 
-    from quill_tpu.ec import curve, native_ec
-    from quill_tpu.fields.bn254 import R
-    from quill_tpu.piops.virtual_poly import Const, Input
+    from quill_tpu_torch.ec import curve, native_ec
     from quill_tpu_torch.ec import device as ed
     from quill_tpu_torch.ec import msm as M
+    from quill_tpu_torch.ec import msm5
     from quill_tpu_torch.engine import sumcheck as sc
+    from quill_tpu_torch.engine.expr import OP_MUL, compile_expr
     from quill_tpu_torch.fields import device as fd
+    from quill_tpu_torch.fields.bn254 import R
     from quill_tpu_torch.kernels import build
+    from quill_tpu_torch.piops.virtual_poly import Const, Input
     from quill_tpu_torch.poly import ntt
 
     dev = engine.device
@@ -153,6 +193,12 @@ def kernel_phase(engine, kzg, rng):
 
     def rand_fr(n):
         return fd.from_ints([rng.randrange(R) for _ in range(n)], fd.FR, dev)
+
+    def record(name, source, replaces, products, nbytes, **kw):
+        records.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, **kw,
+                            **bound(card, products, nbytes),
+                            library_ms=None))
 
     # A: the prove's largest rounds, degree 3: round 0 over 7 tables of
     # 2^16, and a fused fold + round over 5 tables of 2^18
@@ -178,14 +224,18 @@ def kernel_phase(engine, kzg, rng):
         log(f"kernel A, {what}: {times[-1][1]:.3f} ms vs plain "
             f"{times[-1][2]:.3f} ms")
     check(err == 0, "kernel A disagrees with its plain twin")
-    records.append(dict(
-        name="sumcheck_round", route="cuda",
-        source="quill_tpu_torch/csrc/sumcheck_round.cu",
-        replaces="quill_tpu/engine/sumcheck8.py:292 (_round8_kernel); "
-                 "quill_tpu/engine/sumcheck8.py:174 (_entry_kernel)",
-        shape=times[1][0], max_abs_err=err, ms=times[1][1],
-        plain_ms=times[1][2], round0_ms=times[0][1],
-        round0_plain_ms=times[0][2]))
+    # per pair of folded outputs: 2 fold products per table, then the
+    # program at t = 0..3; reads 4 rows and writes 2 per table
+    k = len(cases[1][3].used_inputs())
+    muls = sum(1 for op in compile_expr(cases[1][3]).ops if op == OP_MUL)
+    pairs = big // 4
+    record("sumcheck_round", "quill_tpu_torch/csrc/sumcheck_round.cu",
+           "quill_tpu/engine/sumcheck8.py:292 (_round8_kernel); "
+           "quill_tpu/engine/sumcheck8.py:174 (_entry_kernel)",
+           pairs * (2 * k + 4 * muls), k * (big + big // 2) * FE,
+           shape=times[1][0], max_abs_err=err, ms=times[1][1],
+           plain_ms=times[1][2], round0_ms=times[0][1],
+           round0_plain_ms=times[0][2])
 
     # B: the prove's largest product, 2^18 x 2^18 (transforms of 2^19)
     a, b = rand_fr(big), rand_fr(big)
@@ -206,12 +256,13 @@ def kernel_phase(engine, kzg, rng):
     ntt.stages(xp, tw, plain=True)
     err = max(err, tensor_err(xk, xp))
     check(err == 0, "kernel B disagrees with its plain twin")
-    records.append(dict(
-        name="ntt_stage", route="cuda", source="quill_tpu_torch/csrc/ntt.cu",
-        replaces="quill_tpu/poly/ntt8.py:135 (_ntt_body)",
-        shape="19 stages of one 2^19-point NTT (poly_mul 2^18 x 2^18)",
-        max_abs_err=err, ms=cuda_ms(lambda: ntt.stages(xk, tw)),
-        plain_ms=cuda_ms(lambda: ntt.stages(xp, tw, plain=True), reps=1)))
+    stages = n.bit_length() - 1
+    record("ntt_stage", "quill_tpu_torch/csrc/ntt.cu",
+           "quill_tpu/poly/ntt8.py:135 (_ntt_body)",
+           stages * (n // 2), (2 * n + n // 2) * FE,
+           shape="19 stages of one 2^19-point NTT (poly_mul 2^18 x 2^18)",
+           max_abs_err=err, ms=cuda_ms(lambda: ntt.stages(xk, tw)),
+           plain_ms=cuda_ms(lambda: ntt.stages(xp, tw, plain=True), reps=1))
     log(f"kernel B: exact; {records[-1]['ms']:.3f} ms vs plain "
         f"{records[-1]['plain_ms']:.3f} ms")
 
@@ -225,7 +276,7 @@ def kernel_phase(engine, kzg, rng):
     uniform = [rng.randrange(R) for _ in range(big)]
     uniform[:4] = [0, 1, R - 1, R - 2]
     err_c = err_d = 0
-    c_times, d_times = {}, {}
+    c_times, d_times, c_work = {}, {}, {}
     for what, ints in (("uniform", uniform), ("id column", list(range(big)))):
         s = fd.from_ints(ints, fd.FR, dev)
         got = M.msm(bs, s)
@@ -245,6 +296,18 @@ def kernel_phase(engine, kzg, rng):
                   "the id column never reached kernel C's projective level")
         sums_p = M.sum_levels(xy, entries, levels, plain=True)
         err_c = max(err_c, points_err(sums_k, sums_p))
+        # this data's work: a level-0 piece of L entries does one affine
+        # add (9 products) and L - 2 mixed adds (11); a projective piece
+        # L - 1 adds (12); each entry is read as an index and a point
+        lens0 = levels[0][1].to(torch.int64)
+        products = int(9 * (lens0 >= 2).sum() + 11 * (lens0 - 2).clamp(
+            min=0).sum())
+        nbytes = int(lens0.sum()) * (4 + AFF) + lens0.numel() * (8 + PT)
+        for _, ln in levels[1:]:
+            ln = ln.to(torch.int64)
+            products += 12 * int((ln - 1).sum())
+            nbytes += int(ln.sum()) * PT + ln.numel() * (8 + PT)
+        c_work[what] = (products, nbytes)
         c_times[what] = (
             f"{keys.numel()} entries, {len(levels)} levels",
             cuda_ms(lambda: M.sum_levels(xy, entries, levels)),
@@ -266,23 +329,121 @@ def kernel_phase(engine, kzg, rng):
     check(err_c == 0, "kernel C disagrees with its plain twin")
     check(err_d == 0, "kernel D disagrees with its plain twin")
     u, i = c_times["uniform"], c_times["id column"]
-    records.append(dict(
-        name="msm_bucket_sum", route="cuda", source="quill_tpu_torch/csrc/msm.cu",
-        replaces="quill_tpu/ec/msm7k.py:81 (_lvl0s_kernel); "
-                 "quill_tpu/ec/msm6k.py:70 (_lvl_kernel)",
-        shape=f"2^18-point MSM, uniform scalars: {u[0]}",
-        max_abs_err=err_c, ms=u[1], plain_ms=u[2],
-        id_column_shape=f"2^18-point MSM, scalars 0..2^18-1: {i[0]}",
-        id_column_ms=i[1], id_column_plain_ms=i[2]))
-    records.append(dict(
-        name="msm_bucket_reduce", route="cuda",
-        source="quill_tpu_torch/csrc/msm.cu",
-        replaces="quill_tpu/ec/msm7.py:146-160 (v7 Fenwick query phase, XLA "
-                 "in the TPU build); quill_tpu/ec/msm6k.py:70 (_lvl_kernel)",
-        shape="16 windows x 2^15 buckets (uniform scalars)",
-        max_abs_err=err_d, ms=d_times["uniform"][0],
-        plain_ms=d_times["uniform"][1], id_column_ms=d_times["id column"][0],
-        id_column_plain_ms=d_times["id column"][1]))
+    record("msm_bucket_sum", "quill_tpu_torch/csrc/msm.cu",
+           "quill_tpu/ec/msm7k.py:81 (_lvl0s_kernel); "
+           "quill_tpu/ec/msm6k.py:70 (_lvl_kernel)", *c_work["uniform"],
+           shape=f"2^18-point MSM, uniform scalars: {u[0]}",
+           max_abs_err=err_c, ms=u[1], plain_ms=u[2],
+           id_column_shape=f"2^18-point MSM, scalars 0..2^18-1: {i[0]}",
+           id_column_ms=i[1], id_column_plain_ms=i[2])
+    # D: 2 adds per bucket in the segment pass; per segment j a
+    # double-and-add by SEG * j and one add, then a 255-add tree
+    nseg = M.NBUCK // M.SEG
+    final = sum((M.SEG * j | 1).bit_length() + bin(M.SEG * j).count("1") + 1
+                for j in range(nseg))
+    record("msm_bucket_reduce", "quill_tpu_torch/csrc/msm.cu",
+           "quill_tpu/ec/msm7.py:146-160 (v7 Fenwick query phase, XLA "
+           "in the TPU build); quill_tpu/ec/msm6k.py:70 (_lvl_kernel)",
+           12 * M.NWIN * (2 * M.NBUCK + final + nseg - 1),
+           (M.NWIN * M.NBUCK + M.NWIN) * PT,
+           shape="16 windows x 2^15 buckets (uniform scalars)",
+           max_abs_err=err_d, ms=d_times["uniform"][0],
+           plain_ms=d_times["uniform"][1], id_column_ms=d_times["id column"][0],
+           id_column_plain_ms=d_times["id column"][1])
+
+    # E to H: the small route, at the shapes of one batch of 4 one-chunk
+    # MSMs.  The basis is a fresh one over the CRS points, with a shifted-
+    # basis cache of its own, so the prove's cache stays cold and builds
+    # its shifted basis, through kernel E, on the main path.
+    own = M.TorchBasis(xy=kzg._basis.xy, inf=kzg._basis.inf,
+                       length=kzg._basis.length)
+    pts0, inf0 = msm5.chunk_points(own, 0)
+    n = pts0.shape[0]
+    other = msm5.pt_add(pts0, pts0)
+    flags = torch.tensor([rng.random() < 0.5 for _ in range(n)],
+                         dtype=torch.bool, device=dev)
+    err_e = max(points_err(msm5.pt_add(pts0, other),
+                           msm5.pt_add_plain(pts0, other)),
+                points_err(msm5.pt_add(pts0, other, flags),
+                           msm5.pt_add_plain(pts0, other, flags)))
+    lad_k = msm5.shift_ladder(pts0)
+    lad_p = msm5.shift_ladder(pts0, plain=True)
+    err_e = max(err_e, points_err(lad_k.reshape(-1, 3, fd.NLIMB),
+                                  lad_p.reshape(-1, 3, fd.NLIMB)))
+    check(err_e == 0, "kernel E disagrees with its plain twin")
+    e_times = dict(
+        ms=cuda_ms(lambda: msm5.pt_add(pts0, other)),
+        plain_ms=cuda_ms(lambda: msm5.pt_add_plain(pts0, other), reps=1),
+        flagged_ms=cuda_ms(lambda: msm5.pt_add(pts0, other, flags)),
+        flagged_plain_ms=cuda_ms(
+            lambda: msm5.pt_add_plain(pts0, other, flags), reps=1),
+        ladder_ms=cuda_ms(lambda: msm5.shift_ladder(pts0), reps=1),
+        ladder_plain_ms=cuda_ms(lambda: msm5.shift_ladder(pts0, plain=True),
+                                reps=1))
+    del lad_p
+    log(f"kernel E, 2^16 adds: {e_times['ms']:.3f} ms vs plain "
+        f"{e_times['plain_ms']:.3f} ms; flagged {e_times['flagged_ms']:.3f} "
+        f"ms; 247-pass ladder {e_times['ladder_ms']:.3f} ms vs plain "
+        f"{e_times['ladder_plain_ms']:.3f} ms")
+    record("msm5_pt_add", "quill_tpu_torch/csrc/msm5.cu",
+           "quill_tpu/fields/pallas8.py:475 (_stacked_combine_kernel)",
+           12 * n, 3 * n * PT, shape="2^16 elementwise adds (one pass of "
+           "the shifted basis's 247-pass doubling ladder)", max_abs_err=err_e,
+           **e_times)
+
+    sh = msm5.to_affine(lad_k.reshape(-1, 3, fd.NLIMB))
+    del lad_k
+    vecs = [[rng.randrange(R) for _ in range(n)] for _ in range(4)]
+    vecs[0][:4] = [0, 1, R - 1, (1 << 13) - 1]
+    s_list = [fd.from_ints(v, fd.FR, dev) for v in vecs]
+    scs = torch.stack([fd.from_mont(t, fd.FR) for t in s_list])
+    keys, perm, leaves = msm5.sort_leaves(scs, inf0, sh)
+    check(leaves.shape[0] == 4 * msm5.NWIN * n,
+          "the small route's batch is not 4 x 20 x n leaves")
+    x1 = msm5.tree_up0(leaves)
+    err_f = points_err(x1, msm5.tree_up0_plain(leaves))
+    check(err_f == 0, "kernel F disagrees with its plain twin")
+    x2 = msm5.tree_up(x1)
+    err_g = points_err(x2, msm5.tree_up_plain(x1))
+    check(err_g == 0, "kernel G disagrees with its plain twin")
+    err_h = points_err(msm5.tree_down(x2, x1), msm5.tree_down_plain(x2, x1))
+    check(err_h == 0, "kernel H disagrees with its plain twin")
+    k1, k2 = x1.shape[0], x2.shape[0]
+    for name, src, fn, plain, products, nbytes, shape, err in (
+            ("msm5_tree_up0", "quill_tpu/ec/msm5.py:245 (_up0_kernel)",
+             lambda: msm5.tree_up0(leaves),
+             lambda: msm5.tree_up0_plain(leaves), 9 * k1,
+             2 * k1 * AFF + k1 * PT,
+             f"{k1} affine leaf pairs (4 MSMs x 20 windows x {n} points)",
+             err_f),
+            ("msm5_tree_up", "quill_tpu/ec/msm3.py:258 (_up_kernel)",
+             lambda: msm5.tree_up(x1), lambda: msm5.tree_up_plain(x1),
+             12 * k2, 3 * k2 * PT, f"first projective level, {k2} adds",
+             err_g),
+            ("msm5_tree_down", "quill_tpu/ec/msm3.py:267 (_down_kernel)",
+             lambda: msm5.tree_down(x2, x1),
+             lambda: msm5.tree_down_plain(x2, x1), 12 * k2, 4 * k2 * PT,
+             f"finest down level, {k2} adds, {2 * k2} outputs", err_h)):
+        t_k, t_p = cuda_ms(fn), cuda_ms(plain, reps=1)
+        log(f"kernel {name}: {shape}: {t_k:.3f} ms vs plain {t_p:.3f} ms")
+        record(name, "quill_tpu_torch/csrc/msm5.cu", src, products, nbytes,
+               shape=shape, max_abs_err=err, ms=t_k, plain_ms=t_p)
+    del leaves, x1, x2
+
+    # the whole small-route MSM against kernels C and D, same 4 vectors
+    bs_own = M.slice_basis(own, n)
+    bs_cd = M.slice_basis(kzg._basis, n)
+    got = msm5.msm_batch(bs_own, s_list)
+    want = [M.msm(bs_cd, t) for t in s_list]
+    check(all(g == w for g, w in zip(got, want)),
+          "the small-route MSM disagrees with kernels C and D")
+    small_ms = cuda_ms(lambda: msm5.msm_batch(bs_own, s_list))
+    cd_ms = cuda_ms(lambda: [M.msm(bs_cd, t) for t in s_list])
+    log(f"4 MSMs of {n} points: small route (one batch) {small_ms:.3f} ms, "
+        f"kernels C + D (one at a time) {cd_ms:.3f} ms; equal")
+    for rec in records[-4:]:
+        rec["small_route_batch_ms"] = small_ms
+        rec["cd_same_4_msms_ms"] = cd_ms
     return records
 
 
@@ -293,7 +454,7 @@ def profile_prove(hp, witness):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from quill_tpu.proof.hyperplonk import TraceWitness
+    from quill_tpu_torch.proof.hyperplonk import TraceWitness
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -307,7 +468,7 @@ def profile_prove(hp, witness):
     log(f"profile: wall {wall:.3f}s, device busy {busy_us / 1e6:.3f}s "
         f"({100 * busy_us / 1e6 / wall:.1f}%)")
     rows.sort(key=lambda e: -e.self_device_time_total)
-    ours = ("sumcheck_", "ntt_stage", "bucket_")
+    ours = ("sumcheck_", "ntt_stage", "bucket_", "pt_add", "tree_")
     for i, e in enumerate(rows):
         if i < 12 or e.key.startswith(ours):
             log(f"  {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.1f} "
@@ -316,9 +477,9 @@ def profile_prove(hp, witness):
 
 def fibonacci(rows: int):
     """The circuit and witness of scripts/prove_tpu.py:43-64."""
-    from quill_tpu.fields.bn254 import R
-    from quill_tpu.frontend.transition_circuit import TransitionCircuit
-    from quill_tpu.piops.virtual_poly import Const
+    from quill_tpu_torch.fields.bn254 import R
+    from quill_tpu_torch.frontend.transition_circuit import TransitionCircuit
+    from quill_tpu_torch.piops.virtual_poly import Const
 
     circuit = TransitionCircuit.new(rows)
     s1 = circuit.allocate_state_cell()
@@ -344,22 +505,20 @@ def main():
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
 
-    kind = device_phase()
+    card = device_phase()
     sys.path.insert(0, ROOT)
-    os.environ.setdefault("QUILL_CRS_CACHE_DIR",
-                          os.path.join(ROOT, "build", "crs"))
     import random
 
     import torch
 
-    from quill_tpu.proof import hyperplonk
-    from quill_tpu.proof.hyperplonk import HyperPlonk, TraceWitness
-    from quill_tpu.pcs.mlpcs import MultilinearPCS
-    from quill_tpu.utils.profiling import metrics
-    from quill_tpu.utils.proof_io import serialize_proof
     from quill_tpu_torch.engine.device import TorchEngine
     from quill_tpu_torch.kernels import build
+    from quill_tpu_torch.pcs.mlpcs import MultilinearPCS
     from quill_tpu_torch.pcs.setup import setup
+    from quill_tpu_torch.proof import hyperplonk
+    from quill_tpu_torch.proof.hyperplonk import HyperPlonk, TraceWitness
+    from quill_tpu_torch.utils.profiling import metrics
+    from quill_tpu_torch.utils.proof_io import serialize_proof
 
     build_phase()
     rows = 1 << LOG2_ROWS
@@ -370,12 +529,13 @@ def main():
     kzg = setup(engine, max(max_degree, 1 << 16))
     log(f"setup: CRS of {kzg.max_degree + 1} points, {time.time()-t0:.1f}s")
 
-    records = kernel_phase(engine, kzg, random.Random(1234))
+    records = kernel_phase(engine, kzg, random.Random(1234), card)
 
     pcs = MultilinearPCS(kzg)
     phases = {}
     torch.cuda.synchronize()
     build.reset_counts()
+    engine.msm_counts = dict.fromkeys(engine.msm_counts, 0)
     metrics.reset()
     t0 = time.time()
     hp = HyperPlonk.preprocess([circuit], pcs)
@@ -386,6 +546,7 @@ def main():
     torch.cuda.synchronize()
     phases["prove_s"] = time.time() - t0
     launches = dict(build.LAUNCHES)
+    routes = dict(engine.msm_counts)
     data = serialize_proof(proof)
     t0 = time.time()
     hyperplonk.verify(proof, hp.to_vk(), pcs, batch_pairings=True)
@@ -394,6 +555,7 @@ def main():
     log(f"proof: {len(data)} bytes, sha256 {digest}")
     log("phases: " + json.dumps(phases))
     log("launches: " + json.dumps(launches))
+    log("MSMs by route (preprocess + prove): " + json.dumps(routes))
     top = sorted(metrics.report().items(), key=lambda kv: -kv[1]["total_sec"])
     log("host spans (utils/profiling): " + json.dumps(dict(top[:14])))
     check(len(data) == PINNED_LEN and digest == PINNED_SHA256,
@@ -406,7 +568,7 @@ def main():
         rec["launches"] = launches[rec["name"]]
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": card["kind"],
         "count": torch.cuda.device_count()}}))
 
 

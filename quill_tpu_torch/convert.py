@@ -21,12 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from quill_tpu.fields.bn254 import R
-from quill_tpu.fields.limbs import limbs_to_ints
-
 from .ec.msm import TorchBasis
 from .fields import device as fd
+from .fields.bn254 import R
 from .fields.device import FQ, FR
+from .fields.limbs import limbs_to_ints
 
 JAX_R_BITS = 264
 

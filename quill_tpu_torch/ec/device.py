@@ -21,10 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from quill_tpu.ec import curve
-
 from ..fields import device as fd
 from ..fields.device import FQ
+from . import curve
 
 B3 = 9
 

@@ -3,7 +3,9 @@ their plain PyTorch twins.
 
 Counterpart of `quill_tpu/ec/msm.py` (`DeviceBasis`, `load_basis`,
 `slice_basis`) and of the v7 pipeline `quill_tpu/ec/msm7.py` with its
-kernels `ec/msm7k.py` and `ec/msm6k.py`.  One MSM, for every size:
+kernels `ec/msm7k.py` and `ec/msm6k.py`: the route of every MSM that the
+small route (`ec/msm5.py`, `TorchEngine.msm_route`) does not take.  One
+MSM:
 
 1. scalars leave Montgomery form and are recoded into 16 signed 16-bit
    digits d in [-2^15, 2^15) (`ec/msm7.py:61-75`); basis points at
@@ -18,15 +20,14 @@ kernels `ec/msm7k.py` and `ec/msm6k.py`.  One MSM, for every size:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
-
-from quill_tpu.ec import curve
 
 from ..fields import device as fd
 from ..fields.device import FR
 from ..kernels import build
+from . import curve
 from . import device as ed
 
 WBITS = 16
@@ -56,11 +57,15 @@ def _fns():
 @dataclass
 class TorchBasis:
     """CRS points on the device: (n, 2, 8) affine Fq Montgomery rows and an
-    (n,) infinity mask (infinity rows hold (0, 0))."""
+    (n,) infinity mask (infinity rows hold (0, 0)).  A slice keeps the
+    basis it was cut from as `root`; the small-MSM route caches its shifted
+    bases per CRS chunk on the root (`shifted`), so slices share them."""
 
     xy: torch.Tensor
     inf: torch.Tensor
     length: int
+    root: "TorchBasis | None" = None
+    shifted: dict = field(default_factory=dict)
 
 
 def load_basis(affines: list, device) -> TorchBasis:
@@ -70,7 +75,8 @@ def load_basis(affines: list, device) -> TorchBasis:
 
 def slice_basis(basis: TorchBasis, n: int) -> TorchBasis:
     n = min(n, basis.length)
-    return TorchBasis(xy=basis.xy[:n], inf=basis.inf[:n], length=n)
+    return TorchBasis(xy=basis.xy[:n], inf=basis.inf[:n], length=n,
+                      root=basis.root or basis)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,357 @@
+"""The small-MSM route: a shifted basis and a prefix tree, kernels E to H
+(`csrc/msm5.cu`) and their plain PyTorch twins.
+
+Counterpart of `quill_tpu/ec/msm5.py` and of the parts of
+`quill_tpu/ec/msm3.py` it shares.  The TPU build laid the tree out as
+(S=256, 3L, M) tiles, fused its top levels and ran a Hillis-Steele ladder
+over the lanes, all to save TPU dispatches; here the tree is one flat
+sequence of `(n, 3, 8)` int32 Montgomery points, one launch per level.
+For B MSMs over one CRS chunk of n <= 2^16 points:
+
+1. digits: 20 unsigned 13-bit windows per scalar
+   (`quill_tpu/ec/msm.py:131 _extract_digits`); digits of basis points at
+   infinity are forced to 0 (`msm5.py:177`);
+2. shifted basis: window w holds 2^(13 w) G_i, built once per CRS chunk by
+   19 rounds of 13 doublings (kernel E adds each point to itself) and one
+   batch normalisation to affine; points at infinity become the generator
+   (`msm5.py:24-29`).  It is cached on the root basis, so slices share it;
+3. leaves: every (MSM b, window w, point i) is keyed b * 8192 + digit, one
+   stable `torch.sort` orders the B * 20 * n keys, and the leaves are the
+   shifted affine points in that order;
+4. prefix tree (`msm3.py:395 _tree(full=False)`, `msm5.py:288 _tree5`):
+   kernel F adds affine leaf pairs, kernel G adds each projective level up
+   (odd levels padded with the identity), kernel H expands each level down,
+   stopping at the pair level: I1[j] = P[2j + 1], P the inclusive prefix
+   sums of the leaves;
+5. collect (`msm3.py:490 _cgather_fn`, `msm5.py:308`): since G1 is a group
+   the Pippenger sum telescopes, sum_d d B_d = 8191 P[e_8191] -
+   sum_{c < 8191} P[e_c] with e_c the last sorted position whose key is
+   at most b * 8192 + c (a digit-0 leaf, and every leaf of an earlier MSM,
+   cancels).  Prefixes at even positions are I1 minus the next leaf; the
+   2 * 8191 terms of each MSM are summed pairwise by kernel G;
+6. finalize on the host (`msm3.py:587 _finalize_host`): 8191 T_b - S_b.
+
+The JAX package builds the shifted basis of a tau-powers CRS with a
+fixed-base generator instead (`msm3.py:140-191`); the points are the same.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..fields import device as fd
+from ..fields.device import FQ, FR
+from ..kernels import build
+from . import curve
+from . import device as ed
+from .msm import TorchBasis
+
+WBITS = 13
+NWIN = 20                  # ceil(254 / 13)
+NBUCK = 1 << WBITS
+CHUNK = 1 << 16            # CRS points per shifted-basis chunk
+
+_FN = {}
+
+
+def _fns():
+    if not _FN:
+        lib = build.lib("msm5")
+        vp, i64 = build.VP, build.I64
+        _FN["add"] = build.bind(lib, "quill_pt_add",
+                                [vp, vp, vp, i64, vp, vp])
+        _FN["up0"] = build.bind(lib, "quill_tree_up0", [vp, i64, vp, vp])
+        _FN["up"] = build.bind(lib, "quill_tree_up", [vp, i64, vp, vp])
+        _FN["down"] = build.bind(lib, "quill_tree_down",
+                                 [vp, vp, i64, vp, vp])
+    return _FN
+
+
+def _require(ok: bool, what: str) -> None:
+    if not ok:
+        raise ValueError(f"small-MSM kernel input: {what}")
+
+
+def _check_points(t: torch.Tensor, coords: int, what: str) -> None:
+    _require(t.is_cuda and t.dtype == torch.int32 and t.is_contiguous()
+             and t.dim() == 3 and t.shape[1:] == (coords, fd.NLIMB),
+             f"{what} must be contiguous (n, {coords}, 8) int32 on CUDA")
+
+
+def _out(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty((n, 3, fd.NLIMB), dtype=torch.int32,
+                       device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# kernel E: elementwise add, and the flagged combine
+# ---------------------------------------------------------------------------
+
+
+def pt_add(a, b, flags=None):
+    """Kernel E: a + b for (n, 3, 8) points, elementwise; with an (n,)
+    bool `flags`, fb ? b : a + b (`seg_combine_stacked`)."""
+    if not a.is_cuda:
+        return pt_add_plain(a, b, flags)
+    _check_points(a, 3, "a")
+    _check_points(b, 3, "b")
+    _require(a.shape == b.shape, "a and b differ in shape")
+    if flags is not None:
+        _require(flags.is_cuda and flags.dtype == torch.bool
+                 and flags.is_contiguous() and flags.shape == a.shape[:1],
+                 "flags must be a contiguous (n,) bool tensor on CUDA")
+    out = _out(a.shape[0], a)
+    rc = _fns()["add"](a.data_ptr(), b.data_ptr(),
+                       None if flags is None else flags.data_ptr(),
+                       a.shape[0], out.data_ptr(), build.stream_ptr())
+    build.check(rc, "msm5_pt_add")
+    build.count("msm5_pt_add")
+    return out
+
+
+def pt_add_plain(a, b, flags=None):
+    out = fd.from_w16(ed.padd_w(fd.to_w16(a), fd.to_w16(b)))
+    if flags is not None:
+        out = torch.where(flags[:, None, None], b, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernels F, G, H: the prefix tree's levels
+# ---------------------------------------------------------------------------
+
+
+def tree_up0(leaves):
+    """Kernel F: (2k, 2, 8) affine leaves -> (k, 3, 8) projective pair
+    sums o[j] = leaf[2j] + leaf[2j+1] (9 products, Z = 1)."""
+    if not leaves.is_cuda:
+        return tree_up0_plain(leaves)
+    _check_points(leaves, 2, "leaves")
+    _require(leaves.shape[0] % 2 == 0, "odd number of leaves")
+    k = leaves.shape[0] // 2
+    out = _out(k, leaves)
+    rc = _fns()["up0"](leaves.data_ptr(), k, out.data_ptr(),
+                       build.stream_ptr())
+    build.check(rc, "msm5_tree_up0")
+    build.count("msm5_tree_up0")
+    return out
+
+
+def tree_up0_plain(leaves):
+    w = fd.to_w16(leaves)
+    return fd.from_w16(ed.aadd_w(w[0::2], w[1::2]))
+
+
+def tree_up(x):
+    """Kernel G: (2k, 3, 8) -> (k, 3, 8), o[j] = x[2j] + x[2j+1]."""
+    if not x.is_cuda:
+        return tree_up_plain(x)
+    _check_points(x, 3, "x")
+    _require(x.shape[0] % 2 == 0, "odd number of points")
+    k = x.shape[0] // 2
+    out = _out(k, x)
+    rc = _fns()["up"](x.data_ptr(), k, out.data_ptr(), build.stream_ptr())
+    build.check(rc, "msm5_tree_up")
+    build.count("msm5_tree_up")
+    return out
+
+
+def tree_up_plain(x):
+    w = fd.to_w16(x)
+    return fd.from_w16(ed.padd_w(w[0::2], w[1::2]))
+
+
+def tree_down(i, u):
+    """Kernel H: prefixes i (k, 3, 8) of a level and the level below it
+    u (2k, 3, 8) -> that level's prefixes (2k, 3, 8): o[2j+1] = i[j],
+    o[2j] = i[j] - u[2j+1]."""
+    if not i.is_cuda:
+        return tree_down_plain(i, u)
+    _check_points(i, 3, "i")
+    _check_points(u, 3, "u")
+    _require(u.shape[0] == 2 * i.shape[0], "u must be twice as long as i")
+    k = i.shape[0]
+    out = _out(2 * k, i)
+    rc = _fns()["down"](i.data_ptr(), u.data_ptr(), k, out.data_ptr(),
+                        build.stream_ptr())
+    build.check(rc, "msm5_tree_down")
+    build.count("msm5_tree_down")
+    return out
+
+
+def tree_down_plain(i, u):
+    neg = torch.ones(i.shape[0], dtype=torch.bool, device=i.device)
+    even = ed.padd_w(fd.to_w16(i), ed.neg_y_w(fd.to_w16(u[1::2]), neg))
+    out = torch.empty_like(u)
+    out[0::2] = fd.from_w16(even)
+    out[1::2] = i
+    return out
+
+
+# ---------------------------------------------------------------------------
+# shifted basis
+# ---------------------------------------------------------------------------
+
+
+def chunk_points(root: TorchBasis, j: int):
+    """Chunk j of a basis as (n, 3, 8) projective points with Z = 1, points
+    at infinity replaced by the generator, and its (n,) infinity mask."""
+    lo = j * CHUNK
+    hi = min(root.length, lo + CHUNK)
+    xy, inf = root.xy[lo:hi], root.inf[lo:hi]
+    dev = xy.device
+    g = curve.g1_affine_generator()
+    gen = fd.from_ints([g.x.v, g.y.v], FQ, dev)
+    xy = torch.where(inf[:, None, None], gen, xy)
+    one = fd.const(1, FQ, dev).expand(hi - lo, 1, fd.NLIMB)
+    return torch.cat((xy, one), 1).contiguous(), inf
+
+
+def shift_ladder(p, plain: bool = False):
+    """(n, 3, 8) points -> (NWIN, n, 3, 8), window w holding 2^(13 w) p:
+    19 rounds of 13 doublings, each a kernel E launch (247 in all)."""
+    add = pt_add_plain if plain else pt_add
+    wins = [p]
+    for _ in range(NWIN - 1):
+        cur = wins[-1]
+        for _ in range(WBITS):
+            cur = add(cur, cur)
+        wins.append(cur)
+    return torch.stack(wins, 0)
+
+
+def to_affine(p):
+    """(n, 3, 8) projective points, none the identity -> (n, 2, 8) affine
+    with one field inversion (`ec/fixed_base.py:158 _batch_normalize`)."""
+    zinv = fd.to_w16(fd.batch_inverse(p[:, 2].contiguous(), FQ))
+    xy = fd.w_mul(fd.to_w16(p[:, :2]), zinv.unsqueeze(1), FQ)
+    return fd.from_w16(xy).contiguous()
+
+
+def build_shifted(root: TorchBasis, j: int):
+    """The shifted basis of chunk j: (NWIN * n, 2, 8) affine, window-major
+    (row w * n + i holds 2^(13 w) G_i)."""
+    pts, _ = chunk_points(root, j)
+    return to_affine(shift_ladder(pts).reshape(-1, 3, fd.NLIMB))
+
+
+def shifted(basis: TorchBasis, j: int):
+    """build_shifted of chunk j, cached on the root basis."""
+    root = basis.root or basis
+    if j not in root.shifted:
+        root.shifted[j] = build_shifted(root, j)
+    return root.shifted[j]
+
+
+# ---------------------------------------------------------------------------
+# digits, sort, tree, collect
+# ---------------------------------------------------------------------------
+
+
+def window_digits(s):
+    """(n, 8) canonical scalars -> (n, NWIN) int64 unsigned 13-bit digits."""
+    v = s.to(torch.int64) & 0xFFFFFFFF
+    out = []
+    for w in range(NWIN):
+        limb, sh = divmod(w * WBITS, 32)
+        d = v[:, limb] >> sh
+        if sh + WBITS > 32 and limb + 1 < fd.NLIMB:
+            d = d | (v[:, limb + 1] << (32 - sh))
+        out.append(d & (NBUCK - 1))
+    return torch.stack(out, 1)
+
+
+def sort_leaves(scs, inf, sh):
+    """(B, n, 8) canonical scalars, the chunk's (n,) infinity mask and its
+    (NWIN * n, 2, 8) shifted basis -> (sorted keys, perm, leaves): leaf k is
+    the shifted point of flat element perm[k] = (b, w, i), its key
+    b * 8192 + digit."""
+    nb, n = scs.shape[:2]
+    d = window_digits(scs.reshape(nb * n, fd.NLIMB)).reshape(nb, n, NWIN)
+    d = d.masked_fill(inf[None, :, None], 0)
+    off = torch.arange(nb, device=scs.device) * NBUCK
+    keys = (d.transpose(1, 2) + off[:, None, None]).reshape(-1)
+    keys, perm = torch.sort(keys, stable=True)
+    leaves = sh[perm % (NWIN * n)].contiguous()
+    return keys, perm, leaves
+
+
+def prefix_tree(leaves):
+    """(T, 2, 8) affine leaves, T even -> I1 (T/2, 3, 8), I1[j] the sum of
+    leaves 0 to 2j + 1."""
+    x = tree_up0(leaves)
+    n1 = x.shape[0]
+    levels = []
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat((x, ed.identity(1, x.device)), 0)
+        levels.append(x)
+        x = tree_up(x)
+    for lvl in reversed(levels):
+        x = tree_down(x[:lvl.shape[0] // 2].contiguous(), lvl)
+    return x[:n1]
+
+
+def collect(keys, perm, i1, sh, nb: int):
+    """-> (S, T), each (nb, 3, 8): S_b the sum of the 8191 bucket-end
+    prefixes P[e_c] of MSM b, T_b its last prefix P[e_8191]."""
+    dev = keys.device
+    m = NBUCK - 1
+    base = torch.arange(nb, device=dev) * NBUCK
+    q = torch.cat(((base[:, None] + torch.arange(m, device=dev)).reshape(-1),
+                   base + m))
+    pos = torch.searchsorted(keys, q, right=True) - 1
+    ok = pos >= 0
+    pc = pos.clamp(min=0)
+    ident = ed.identity(1, dev)
+    vals = torch.where(ok[:, None, None], i1[pc // 2], ident)
+    # P[2j] = I1[j] - leaf[2j + 1]; the last position is odd, so 2j + 1
+    # is always a leaf
+    nxt = sh[perm[pc + 1 - pc % 2] % sh.shape[0]]
+    one = fd.const(1, FQ, dev).expand(q.shape[0], 1, fd.NLIMB)
+    neg = torch.cat((nxt[:, :1], fd.neg(nxt[:, 1], FQ).unsqueeze(1), one), 1)
+    corr = torch.where((ok & (pc % 2 == 0))[:, None, None], neg, ident)
+    # per MSM 8191 prefixes, 8191 corrections and 2 identities: 2^14 terms,
+    # summed pairwise inside each MSM's run
+    shape = (nb, m, 3, fd.NLIMB)
+    terms = torch.cat((vals[:nb * m].view(shape), corr[:nb * m].view(shape),
+                       ident.expand(nb, 2, 3, fd.NLIMB)), 1)
+    terms = terms.reshape(-1, 3, fd.NLIMB).contiguous()
+    while terms.shape[0] > nb:
+        terms = tree_up(terms)
+    totals = tree_up(torch.stack((vals[nb * m:], corr[nb * m:]), 1)
+                     .reshape(-1, 3, fd.NLIMB).contiguous())
+    return terms, totals
+
+
+def finalize(s_pts: list, t_pts: list) -> list:
+    """Per MSM 8191 T_b - S_b on the host (curve.Jacobian)."""
+    return [t.scalar_mul(NBUCK - 1).add(s.neg())
+            for s, t in zip(s_pts, t_pts)]
+
+
+def msm_batch(basis: TorchBasis, scalars: list) -> list:
+    """B = len(scalars) MSMs over one basis, each (n_b, 8) Montgomery Fr
+    vector against the basis's first n_b points -> curve.Jacobian list."""
+    root = basis.root or basis
+    nb = len(scalars)
+    n = basis.length
+    dev = basis.xy.device
+    canon = [fd.from_mont(s[:n], FR) for s in scalars]
+    ident = curve.Jacobian.identity(curve.Fq(1))
+    s_acc, t_acc = [ident] * nb, [ident] * nb
+    for j in range(-(-n // CHUNK)):
+        sh = shifted(basis, j)
+        nj = sh.shape[0] // NWIN
+        lo = j * CHUNK
+        scs = torch.zeros((nb, nj, fd.NLIMB), dtype=torch.int32, device=dev)
+        for b, c in enumerate(canon):
+            part = c[lo:lo + nj]
+            scs[b, :part.shape[0]] = part
+        keys, perm, leaves = sort_leaves(scs, root.inf[lo:lo + nj], sh)
+        i1 = prefix_tree(leaves)
+        del leaves
+        s_pts, t_pts = collect(keys, perm, i1, sh, nb)
+        s_acc = [a.add(p) for a, p in zip(s_acc, ed.proj_to_jacobians(s_pts))]
+        t_acc = [a.add(p) for a, p in zip(t_acc, ed.proj_to_jacobians(t_pts))]
+    return finalize(s_acc, t_acc)

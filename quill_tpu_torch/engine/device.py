@@ -1,8 +1,8 @@
 """PyTorch execution engine: the `engine/host.py` method set on the GPU.
 
-Counterpart of `quill_tpu/engine/device.py: DeviceEngine`.  Everything
-above the engine (`piops/`, `pcs/`, `proof/`, `transcript/`) is reused from
-`quill_tpu` unchanged; this class is what it runs on.
+Counterpart of `quill_tpu/engine/device.py: TpuEngine`.  Everything
+above the engine (`piops/`, `pcs/`, `proof/`, `transcript/`) is the port's
+own copy of the JAX package's host modules; this class is what it runs on.
 
 - A device vector (`TVec`) is an `(n, 8)` int32 tensor of Fr elements in
   Montgomery form (`fields/device.py`) plus a logical length; rows past the
@@ -14,23 +14,24 @@ above the engine (`piops/`, `pcs/`, `proof/`, `transcript/`) is reused from
   handoff is by size only.
 - Elementwise ops, scans, `eq_table`, `eval_expr`, `batch_inverse` and
   `quotient_by_linear` are plain torch ops; the sumcheck rounds, the NTT
-  products and the MSM bucket phases run the hand-written kernels A to D.
+  products and the MSMs run the hand-written kernels: A to D, and E to H
+  on the small-MSM route (`msm_route`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from quill_tpu.engine.host import HostEngine
-from quill_tpu.fields.bn254 import R
-from quill_tpu.fields.scalar import inv
-
 from ..ec import msm as msm_mod
+from ..ec import msm5
 from ..fields import device as fd
+from ..fields.bn254 import R
 from ..fields.device import FR
+from ..fields.scalar import inv
 from ..poly import ntt
 from . import sumcheck
 from .expr import compile_expr, const_tensor, eval_program_w
+from .host import HostEngine
 
 
 class TVec:
@@ -52,9 +53,15 @@ class TVec:
 class TorchEngine:
     name = "torch"
 
-    def __init__(self, device="cuda", min_device_size: int = 1 << 11):
+    def __init__(self, device="cuda", min_device_size: int = 1 << 11,
+                 msm_small_chunks: int = 2, msm_batch: int = 4):
         self.device = torch.device(device)
         self.min_device_size = max(1, int(min_device_size))
+        # QUILL_MSM_SMALL_CHUNKS and QUILL_MSM_BATCH of the JAX engine
+        self.msm_small_chunks = int(msm_small_chunks)
+        self.msm_batch = max(1, int(msm_batch))
+        # MSMs by route, and the batched small-route runs they took
+        self.msm_counts = {"small": 0, "small_batches": 0, "cd": 0}
         self.host = HostEngine()
 
     # -- representation -------------------------------------------------------
@@ -174,7 +181,7 @@ class TorchEngine:
     def batch_inverse(self, v):
         if not self._dev(v):
             return self.host.batch_inverse(v)
-        return TVec(batch_inverse(v.rows()))
+        return TVec(fd.batch_inverse(v.rows(), FR))
 
     # -- multilinear ----------------------------------------------------------
 
@@ -275,7 +282,7 @@ class TorchEngine:
     def s_polynomial(self, p1, p2):
         """IPA S polynomial with ONE product (`engine/device.py:864-885`):
         h = f * rev(g), S[k] = h[n + k] + h[n - 2 - k], k < n - 1."""
-        from quill_tpu.pcs.ipa import s_polynomial_generic
+        from ..pcs.ipa import s_polynomial_generic
 
         if not (self._dev(p1) or self._dev(p2)):
             return s_polynomial_generic(self, p1, p2)
@@ -295,17 +302,56 @@ class TorchEngine:
     def basis_slice(self, basis, n: int):
         return msm_mod.slice_basis(basis, n)
 
-    def msm(self, basis, scalars):
-        """Every MSM runs kernels C and D, whatever its size; host scalar
-        vectors are loaded to the device first."""
+    def msm_route(self, basis) -> str:
+        """`engine/device.py:929 TpuEngine._msm_impl` for bases up to
+        2^20 points: a basis of at most `msm_small_chunks` chunks of 2^16
+        points takes the small route (shifted basis + prefix tree, kernels
+        E to H: kernel D's fixed cost loses below ~3 chunks), every other
+        MSM kernels C and D.  Above 2^20 points the JAX engine takes its v8
+        route, which the port has not yet; those stay on C and D."""
+        nch = -(-basis.length // msm5.CHUNK)
+        return "small" if 0 < nch <= self.msm_small_chunks else "cd"
+
+    def _scalars(self, scalars) -> torch.Tensor:
         if isinstance(scalars, TVec):
-            s = scalars.rows()
-        else:
-            s = fd.from_ints([int(x) for x in scalars], FR, self.device)
+            return scalars.rows()
+        return fd.from_ints([int(x) for x in scalars], FR, self.device)
+
+    def msm(self, basis, scalars):
+        """One MSM by the route its basis picks; host scalar vectors are
+        loaded to the device first."""
+        s = self._scalars(scalars)
+        route = self.msm_route(basis)
+        self.msm_counts[route] += 1
+        if route == "small":
+            self.msm_counts["small_batches"] += 1
+            return msm5.msm_batch(basis, [s])[0]
         return msm_mod.msm(basis, s)
 
     def msm_many(self, jobs: list) -> list:
-        return [self.msm(b, s) for b, s in jobs]
+        """`engine/device.py:993 TpuEngine.msm_many`: jobs over one CRS
+        whose widest basis takes the small route run as batched MSMs of
+        `msm_batch` jobs (a short group padded with empty MSMs, so every
+        batch has one width); everything else one job at a time.  Each job
+        uses its own basis's length; the batch runs over the widest."""
+        if len(jobs) <= 1:
+            return [self.msm(b, s) for b, s in jobs]
+        widest = max((b for b, _ in jobs), key=lambda b: b.length)
+        roots = {id(b.root or b) for b, _ in jobs}
+        if len(roots) != 1 or self.msm_route(widest) != "small":
+            return [self.msm(b, s) for b, s in jobs]
+        scalars = [self._scalars(s)[:b.length] for b, s in jobs]
+        empty = scalars[0][:0]
+        out = []
+        for i in range(0, len(scalars), self.msm_batch):
+            part = scalars[i:i + self.msm_batch]
+            real = len(part)
+            if real > 1:
+                part += [empty] * (self.msm_batch - real)
+            self.msm_counts["small"] += real
+            self.msm_counts["small_batches"] += 1
+            out.extend(msm5.msm_batch(widest, part)[:real])
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -323,34 +369,3 @@ def prefix_sum(t: torch.Tensor) -> torch.Tensor:
         w = torch.cat((w[:step], fd.w_add(w[step:], w[:-step], FR)), 0)
         step *= 2
     return fd.from_w16(w)
-
-
-def batch_inverse(t: torch.Tensor) -> torch.Tensor:
-    """Elementwise inverses by a product tree: pair products up to the
-    root, one host inversion, then back down (inverse of a child = inverse
-    of its parent times its sibling).  A zero raises ZeroDivisionError,
-    like `HostEngine.batch_inverse`."""
-    n = t.shape[0]
-    if n == 0:
-        return t.clone()
-    if bool((t == 0).all(-1).any()):
-        raise ZeroDivisionError("inverse of zero field element in batch")
-    one = fd.w_const(1, FR, t.device).unsqueeze(0)
-    levels = []
-    cur = fd.to_w16(t)
-    while True:
-        if cur.shape[0] % 2 and cur.shape[0] > 1:
-            cur = torch.cat((cur, one), 0)
-        levels.append(cur)
-        if cur.shape[0] == 1:
-            break
-        cur = fd.w_mul(cur[0::2], cur[1::2], FR)
-    root = FR.unmont(fd.tensor_to_ints(fd.from_w16(levels[-1]))[0])
-    acc = fd.w_const(inv(root, R), FR, t.device).unsqueeze(0)
-    for level in reversed(levels[:-1]):
-        left, right = level[0::2], level[1::2]
-        acc = acc[:left.shape[0]]
-        both = fd.w_mul(torch.stack((right, left), 1), acc.unsqueeze(1), FR)
-        acc = both.reshape(-1, fd.NW)
-    return fd.from_w16(acc[:n])
-

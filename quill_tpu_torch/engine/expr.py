@@ -16,10 +16,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from quill_tpu.piops import virtual_poly as vp
-
 from ..fields import device as fd
 from ..fields.device import FR
+from ..piops import virtual_poly as vp
 
 OP_IN, OP_CONST, OP_ADD, OP_MUL = 0, 1, 2, 3
 

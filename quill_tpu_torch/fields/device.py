@@ -29,7 +29,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from quill_tpu.fields.bn254 import P, R
+from .bn254 import P, R
+from .scalar import inv
 
 NLIMB = 8          # uint32 limbs per element in storage
 NW = 16            # 16-bit limbs per element in w16 form
@@ -356,6 +357,36 @@ def vsum(a, field: Field = FR) -> int:
     sums = (a.to(torch.int64) & 0xFFFFFFFF).sum(0).cpu().tolist()
     total = sum(int(v) << (32 * i) for i, v in enumerate(sums))
     return field.unmont(total % field.modulus)
+
+
+def batch_inverse(t: torch.Tensor, field: Field = FR) -> torch.Tensor:
+    """Elementwise inverses by a product tree: pair products up to the
+    root, one host inversion, then back down (inverse of a child = inverse
+    of its parent times its sibling).  A zero raises ZeroDivisionError,
+    like `HostEngine.batch_inverse`."""
+    n = t.shape[0]
+    if n == 0:
+        return t.clone()
+    if bool((t == 0).all(-1).any()):
+        raise ZeroDivisionError("inverse of zero field element in batch")
+    one = w_const(1, field, t.device).unsqueeze(0)
+    levels = []
+    cur = to_w16(t)
+    while True:
+        if cur.shape[0] % 2 and cur.shape[0] > 1:
+            cur = torch.cat((cur, one), 0)
+        levels.append(cur)
+        if cur.shape[0] == 1:
+            break
+        cur = w_mul(cur[0::2], cur[1::2], field)
+    root = field.unmont(tensor_to_ints(from_w16(levels[-1]))[0])
+    acc = w_const(inv(root, field.modulus), field, t.device).unsqueeze(0)
+    for level in reversed(levels[:-1]):
+        left, right = level[0::2], level[1::2]
+        acc = acc[:left.shape[0]]
+        both = w_mul(torch.stack((right, left), 1), acc.unsqueeze(1), field)
+        acc = both.reshape(-1, NW)
+    return from_w16(acc[:n])
 
 
 # ---------------------------------------------------------------------------

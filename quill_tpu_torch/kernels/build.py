@@ -3,9 +3,11 @@
 Role of `quill_tpu/utils/aotcache.py` in the TPU build: compile once, reuse.
 Each CUDA source in `quill_tpu_torch/csrc/` becomes one shared library with
 a plain C interface, built by `nvcc` for `sm_90a` at first use and loaded
-with ctypes.  Outputs go to `build/quill_tpu_torch/<hash>/` at the root of
-the checkout, keyed by the sources and flags, under a file lock so that
-concurrent processes build once.  Nothing outside the repository's own
+with ctypes.  The host C libraries of `native/` (G1 arithmetic for the CRS
+and the host MSMs, BLAKE3 for the transcript) are built the same way with
+`gcc` (`native_lib`).  Outputs go to `build/quill_tpu_torch/<hash>/` at the
+root of the checkout, keyed by the sources and flags, under a file lock so
+that concurrent processes build once.  Nothing outside the repository's own
 sources is compiled.
 
 `LAUNCHES` holds one plain integer per kernel.  A wrapper adds one where it
@@ -24,6 +26,7 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
+NATIVE = PKG.parent / "native"
 BUILD_ROOT = PKG.parent / "build" / "quill_tpu_torch"
 
 # library -> CUDA source; every library also depends on the shared header
@@ -31,13 +34,20 @@ LIBS = {
     "sumcheck": "sumcheck_round.cu",
     "ntt": "ntt.cu",
     "msm": "msm.cu",
+    "msm5": "msm5.cu",
 }
 HEADER = "bn254.cuh"
 HOST_SOURCE = "bn254_host.cpp"
+# host library -> C source under native/
+NATIVE_LIBS = {
+    "ec_g1": "ec_g1.c",
+    "blake3": "blake3.c",
+}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 GXX_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC"]
+GCC_FLAGS = ["-O3", "-fPIC", "-shared"]
 
 # kernel name -> launches since the last reset
 LAUNCHES = {
@@ -45,6 +55,10 @@ LAUNCHES = {
     "ntt_stage": 0,          # kernel B
     "msm_bucket_sum": 0,     # kernel C
     "msm_bucket_reduce": 0,  # kernel D
+    "msm5_pt_add": 0,        # kernel E
+    "msm5_tree_up0": 0,      # kernel F
+    "msm5_tree_up": 0,       # kernel G
+    "msm5_tree_down": 0,     # kernel H
 }
 
 _LOADED: dict = {}
@@ -65,18 +79,19 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def _hash(files: list[str], flags: list[str]) -> str:
+def _hash(files: list[Path], flags: list[str]) -> str:
     h = hashlib.sha256()
-    for name in files:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in files:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
 def build_dir() -> Path:
-    return BUILD_ROOT / _hash([HEADER, HOST_SOURCE] + sorted(LIBS.values()),
-                              NVCC_FLAGS)
+    files = [CSRC / n for n in [HEADER, HOST_SOURCE] + sorted(LIBS.values())]
+    files += [NATIVE / n for n in sorted(NATIVE_LIBS.values())]
+    return BUILD_ROOT / _hash(files, NVCC_FLAGS + GCC_FLAGS)
 
 
 def _nvcc() -> str:
@@ -139,23 +154,35 @@ def lib(name: str) -> ctypes.CDLL:
     return _LOADED[name]
 
 
-def build_host() -> Path:
-    """The shared header compiled for the CPU with g++ (tests only)."""
+def _host_build(name: str, compiler: str, flags: list[str],
+                source: Path) -> Path:
+    """One host shared library, built at first use under the lock."""
     out_dir = build_dir()
-    path = out_dir / "libbn254_host.so"
+    path = out_dir / f"lib{name}.so"
     with _Lock(out_dir):
         if not path.exists():
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found")
-            tmp = out_dir / "libbn254_host.so.tmp"
-            res = subprocess.run(
-                [gxx, *GXX_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                 str(CSRC / HOST_SOURCE)], capture_output=True, text=True)
+            cc = shutil.which(compiler)
+            if cc is None:
+                raise RuntimeError(f"{compiler} not found: cannot build "
+                                   f"{source.name}")
+            tmp = out_dir / f"lib{name}.so.tmp"
+            res = subprocess.run([cc, *flags, "-o", str(tmp), str(source)],
+                                 capture_output=True, text=True)
             if res.returncode != 0:
-                raise RuntimeError("g++ failed:\n" + res.stderr)
+                raise RuntimeError(f"{compiler} failed:\n" + res.stderr)
             tmp.replace(path)
     return path
+
+
+def build_host() -> Path:
+    """The shared header compiled for the CPU with g++ (tests only)."""
+    return _host_build("bn254_host", "g++", GXX_FLAGS + ["-I", str(CSRC)],
+                       CSRC / HOST_SOURCE)
+
+
+def native_lib(name: str) -> Path:
+    """The host C library `name` of NATIVE_LIBS, built at first use."""
+    return _host_build(name, "gcc", GCC_FLAGS, NATIVE / NATIVE_LIBS[name])
 
 
 def stream_ptr() -> int:

@@ -1,20 +1,19 @@
 """KZG setup for the port.
 
-Counterpart of `quill_tpu/pcs/kzg.py:106 KZG.device_setup`, which imports
-jax and builds the CRS with the TPU fixed-base kernel.  The port takes the
-host setup instead: `cached_trusted_setup` derives tau from the seed
-exactly as `device_setup` does (`kzg.py:84-87` and `118-121`), so the CRS
-points, and with them the proof bytes, are the same.  The G1 powers are
-computed by the native C backend (`native/ec_g1.c`, built by
-`make -C native`) and cached on disk (`QUILL_CRS_CACHE_DIR`); without that
-backend, `quill_tpu/ec/native_ec.py` falls back to pure-Python EC, which
-takes hours at 2^18 points.  `KZG.__init__` then loads the points onto the
-engine's device (`TorchEngine.load_points`).
+Counterpart of `quill_tpu/pcs/kzg.py:106 KZG.device_setup`, which builds
+the CRS with the TPU fixed-base kernel.  The port takes the host setup of
+its own `pcs/kzg.py` instead: `cached_trusted_setup` derives tau from the
+seed exactly as `device_setup` does, so the CRS points, and with them the
+proof bytes, are the same.  The G1 powers are computed by the native C
+backend (`native/ec_g1.c`, built by `kernels/build.py: native_lib` at first
+use) and cached on disk (`build/crs/`, or `QUILL_CRS_CACHE_DIR`).
+`KZG.__init__` then loads the points onto the engine's device
+(`TorchEngine.load_points`).
 """
 
 from __future__ import annotations
 
-from quill_tpu.pcs.kzg import KZG, cached_trusted_setup
+from .kzg import KZG, cached_trusted_setup
 
 
 def setup(engine, max_degree: int, seed: int = 0) -> KZG:

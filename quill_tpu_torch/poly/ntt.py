@@ -16,9 +16,8 @@ from functools import lru_cache
 
 import torch
 
-from quill_tpu.fields.bn254 import FR_ROOT_OF_UNITY, FR_TWO_ADICITY, R
-
 from ..fields import device as fd
+from ..fields.bn254 import FR_ROOT_OF_UNITY, FR_TWO_ADICITY, R
 from ..fields.device import FR
 from ..kernels import build
 

@@ -1,4 +1,4 @@
-"""Kernels A to D on the card against their plain twins, exactly.
+"""Kernels A to H on the card against their plain twins, exactly.
 
 These need an NVIDIA GPU with nvcc (they build the kernels from
 `quill_tpu_torch/csrc`) and skip elsewhere; whether a card is present is
@@ -14,13 +14,13 @@ import torch
 
 from quill_tpu.ec import curve
 from quill_tpu.fields.bn254 import R
-from quill_tpu.piops.virtual_poly import Const, Input
 
 from quill_tpu_torch.ec import device as ed
 from quill_tpu_torch.ec import msm as M
 from quill_tpu_torch.engine import sumcheck
 from quill_tpu_torch.fields import device as fd
 from quill_tpu_torch.kernels import build
+from quill_tpu_torch.piops.virtual_poly import Const, Input
 from quill_tpu_torch.poly import ntt
 
 pytestmark = pytest.mark.cuda
@@ -79,3 +79,38 @@ def test_kernels_c_d_match_plain_and_host(dev, skewed):
     wk, wp = M.bucket_reduce(dense_k), M.bucket_reduce_plain(dense_k)
     assert bool(ed.points_equal(wk, wp).all())
     assert M.msm(basis, s) == curve.msm_host(pts, ints)
+
+
+def test_kernels_e_to_h_match_plain(dev):
+    """E (both modes, and the doubling ladder), F, G and H on the card
+    against their plain twins, on a small tau CRS's shifted basis; then the
+    small-route MSM against kernels C and D."""
+    from quill_tpu_torch.ec import msm5
+
+    pts = [curve.g1_generator().scalar_mul(k + 2).to_affine()
+           for k in range(256)]
+    pts[7] = curve.Affine(curve.Fq(0), curve.Fq(0), infinity=True)
+    basis = M.load_basis(pts, dev)
+    p, inf = msm5.chunk_points(basis, 0)
+    q = msm5.pt_add(p, p)
+    flags = torch.arange(p.shape[0], device=dev) % 3 == 0
+    assert torch.equal(msm5.pt_add(p, q), msm5.pt_add_plain(p, q))
+    assert torch.equal(msm5.pt_add(p, q, flags),
+                       msm5.pt_add_plain(p, q, flags))
+    ladder = msm5.shift_ladder(p)
+    assert torch.equal(ladder, msm5.shift_ladder(p, plain=True))
+    sh = msm5.to_affine(ladder.reshape(-1, 3, fd.NLIMB))
+    ints = [[RNG.randrange(R) for _ in range(256)] for _ in range(3)]
+    scalars = [fd.from_ints(v, fd.FR, dev) for v in ints]
+    scs = torch.stack([fd.from_mont(s, fd.FR) for s in scalars])
+    _, _, leaves = msm5.sort_leaves(scs, inf, sh)
+    x1 = msm5.tree_up0(leaves)
+    assert torch.equal(x1, msm5.tree_up0_plain(leaves))
+    x2 = msm5.tree_up(x1)
+    assert torch.equal(x2, msm5.tree_up_plain(x1))
+    assert torch.equal(msm5.tree_down(x2, x1), msm5.tree_down_plain(x2, x1))
+    before = build.LAUNCHES["msm5_tree_up0"]
+    got = msm5.msm_batch(basis, scalars)
+    assert build.LAUNCHES["msm5_tree_up0"] == before + 1
+    for s, out in zip(scalars, got):
+        assert out == M.msm(basis, s)

@@ -7,10 +7,13 @@ P + (-P).
 
 import numpy as np
 import pytest
+import torch
 
 from quill_tpu.ec import curve
 
 from quill_tpu_torch.ec import device as ed
+
+torch.set_num_threads(1)
 
 IDENT = curve.Jacobian.identity(curve.Fq(1))
 

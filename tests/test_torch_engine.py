@@ -9,12 +9,16 @@ around kernels A to D.  Sizes 2^10 to 2^12.
 
 import numpy as np
 import pytest
+import torch
 
 from quill_tpu.engine.host import HostEngine
 from quill_tpu.fields.bn254 import R
-from quill_tpu.piops.virtual_poly import Const, Input
+from quill_tpu.piops import virtual_poly as jax_vp
 
 from quill_tpu_torch.engine.device import TVec, TorchEngine
+from quill_tpu_torch.piops import virtual_poly as port_vp
+
+torch.set_num_threads(1)
 
 N = 1 << 10
 
@@ -100,11 +104,13 @@ def test_eq_table_eval_expr_fold(engines, data):
     point = _ints(3, 10)
     point[1] = 0
     _eq(eng, eng.eq_table(point), host.eq_table(point))
-    expr = (Input(0) * Input(1) - Input(2)) * Input(0) + Const(R - 3)
+    expr, jax_expr = [
+        (vp.Input(0) * vp.Input(1) - vp.Input(2)) * vp.Input(0)
+        + vp.Const(R - 3) for vp in (port_vp, jax_vp)]
     c = _ints(4, N)
     dts = [eng.vec_from_ints(x) for x in (a, b, c)]
     hts = [host.vec_from_ints(x) for x in (a, b, c)]
-    _eq(eng, eng.eval_expr(dts, expr, N), host.eval_expr(hts, expr, N))
+    _eq(eng, eng.eval_expr(dts, expr, N), host.eval_expr(hts, jax_expr, N))
     r = 424242424242424242
     _eq(eng, eng.fold(dts[0], r), host.fold(hts[0], r))
 

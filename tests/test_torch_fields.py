@@ -7,6 +7,7 @@ arithmetic has no tolerance.  Inputs come from numpy seeds.
 
 import numpy as np
 import pytest
+import torch
 
 from quill_tpu.fields import scalar
 from quill_tpu.fields.bn254 import P, R
@@ -15,6 +16,8 @@ from quill_tpu.fields.limbs import ints_to_limbs
 from quill_tpu_torch import convert
 from quill_tpu_torch.ec import msm as port_msm
 from quill_tpu_torch.fields import device as fd
+
+torch.set_num_threads(1)
 
 N = 1024
 

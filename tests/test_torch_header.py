@@ -13,12 +13,15 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from quill_tpu.ec import curve
 
 from quill_tpu_torch.ec import device as ed
 from quill_tpu_torch.fields import device as fd
 from quill_tpu_torch.kernels import build
+
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

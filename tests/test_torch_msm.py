@@ -10,6 +10,7 @@ kernel C levels.  Sizes 2^8 to 2^10.
 import random
 
 import pytest
+import torch
 
 from quill_tpu.ec import curve
 from quill_tpu.fields.bn254 import R
@@ -18,6 +19,8 @@ from quill_tpu_torch.ec import msm as M
 from quill_tpu_torch.engine.device import TorchEngine
 from quill_tpu_torch.fields import device as fd
 from quill_tpu_torch.pcs.setup import setup
+
+torch.set_num_threads(1)
 
 RNG = random.Random(7)
 
@@ -35,7 +38,9 @@ def general_points():
 
 @pytest.fixture(scope="module")
 def engine():
-    return TorchEngine("cpu", min_device_size=1)
+    """Every MSM on kernels C and D: the small route is
+    `tests/test_torch_msm5.py`'s."""
+    return TorchEngine("cpu", min_device_size=1, msm_small_chunks=0)
 
 
 @pytest.mark.parametrize("n", [256, 1024])

@@ -4,6 +4,7 @@ the port, so only products are compared."""
 
 import numpy as np
 import pytest
+import torch
 
 from quill_tpu.engine.host import HostEngine
 from quill_tpu.fields.bn254 import R
@@ -12,6 +13,8 @@ from quill_tpu.pcs.ipa import s_polynomial_generic
 from quill_tpu_torch.engine.device import TorchEngine
 from quill_tpu_torch.fields import device as fd
 from quill_tpu_torch.poly import ntt
+
+torch.set_num_threads(1)
 
 
 def _ints(seed, n):

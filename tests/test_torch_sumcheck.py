@@ -4,28 +4,40 @@ against HostEngine.
 The three expressions of `tests/test_sumcheck8.py` at 2^12 rows, every
 round: `sumcheck_begin` for round 0, then `sumcheck_round_fused` until the
 tables are two elements long (min_device_size=1) or until they are handed
-to the host (min_device_size=2^9).
+to the host (min_device_size=2^9).  Each expression is built twice, from
+the port's `piops/virtual_poly.py` and from the JAX package's.
 """
 
 import random
 
 import pytest
+import torch
 
 from quill_tpu.engine.host import HostEngine
 from quill_tpu.fields.bn254 import R
-from quill_tpu.piops.virtual_poly import Const, Input
+from quill_tpu.piops import virtual_poly as jax_vp
 
 from quill_tpu_torch.engine import sumcheck
 from quill_tpu_torch.engine.device import TVec, TorchEngine
+from quill_tpu_torch.piops import virtual_poly as port_vp
+
+torch.set_num_threads(1)
 
 LOG2N = 12
 RNG = random.Random(8)
 
-EXPRS = [
-    Input(0) * Input(1),
-    Input(0) * Input(1) + Const(7) * Input(2),
-    (Input(0) * Input(1) - Input(2)) * Input(0) + Const(R - 3),
-]
+
+def _exprs(vp):
+    Input, Const = vp.Input, vp.Const
+    return [
+        Input(0) * Input(1),
+        Input(0) * Input(1) + Const(7) * Input(2),
+        (Input(0) * Input(1) - Input(2)) * Input(0) + Const(R - 3),
+    ]
+
+
+# (port expression, JAX expression)
+EXPRS = list(zip(_exprs(port_vp), _exprs(jax_vp)))
 
 
 @pytest.fixture(scope="module")
@@ -57,8 +69,8 @@ def _run(eng, tabs, expr, challenges):
 def test_all_rounds_match_host(tables, expr):
     challenges = [RNG.randrange(R) for _ in range(LOG2N - 1)]
     eng = TorchEngine("cpu", min_device_size=1)
-    got, gfin, vecs = _run(eng, tables, expr, challenges)
-    want, wfin, _ = _run(HostEngine(), tables, expr, challenges)
+    got, gfin, vecs = _run(eng, tables, expr[0], challenges)
+    want, wfin, _ = _run(HostEngine(), tables, expr[1], challenges)
     assert got == want
     assert gfin == wfin
     assert all(isinstance(v, TVec) for v in vecs if v is not None)
@@ -76,8 +88,8 @@ def test_rounds_across_the_handoff(tables, monkeypatch):
         return round_messages(ts, *args)
 
     monkeypatch.setattr(sumcheck, "round_messages", counted)
-    got, gfin, vecs = _run(eng, tables, expr, challenges)
-    want, wfin, _ = _run(HostEngine(), tables, expr, challenges)
+    got, gfin, vecs = _run(eng, tables, expr[0], challenges)
+    want, wfin, _ = _run(HostEngine(), tables, expr[1], challenges)
     assert got == want and gfin == wfin
     # round 0, then the folds of 2^12, 2^11, 2^10 and 2^9 (the handoff:
     # its 2^8 results move to the host) all go through the kernel's
@@ -91,13 +103,13 @@ def test_round_messages_plain_and_program(tables):
     the host fold."""
     from quill_tpu_torch.fields import device as fd
 
-    expr = EXPRS[1]
+    expr, jax_expr = EXPRS[1]
     host = HostEngine()
     ts = [fd.from_ints(t[:256]) for t in tables]
     r = 31337
     msgs, folded = sumcheck.round_messages(ts, expr, expr.degree(), r)
     h = [host.vec_from_ints(t[:256]) for t in tables]
-    h_new, h_msgs = host.sumcheck_round_fused(h, expr, expr.degree(), r)
+    h_new, h_msgs = host.sumcheck_round_fused(h, jax_expr, expr.degree(), r)
     assert msgs == h_msgs
     for f, hf in zip(folded, h_new):
         assert fd.to_ints(f) == [int(x) for x in hf]
