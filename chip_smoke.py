@@ -1,26 +1,40 @@
-"""Prove and verify a 2^16-row HyperPlonk proof with quill_tpu_torch on one
-NVIDIA GPU, after checking every hand-written kernel against its plain
-PyTorch twin on the card.
+"""Prove and verify HyperPlonk proofs with quill_tpu_torch on one NVIDIA GPU:
+the 2^16-row Fibonacci proof (every MSM on the small route or kernels C +
+D) and the 2^20-row one (its largest MSMs on the v8 route), after checking
+the device CRS against the host CRS and every hand-written kernel against
+its plain PyTorch twin on the card.
 
-Usage (from the root of a checkout):  python3 chip_smoke.py [--profile]
---profile proves a second time under torch.profiler and prints the device
-busy share and the kernels that take most of its time.
+Usage (from the root of a checkout):
+    python3 chip_smoke.py [--profile] [--cross-check]
+--profile proves the 2^16 rows a second time under torch.profiler and
+prints the device busy share and the kernels that take most of its time.
+--cross-check proves the 2^20 rows a second time with every MSM off the
+v8 route (`msm_shift_max` above the CRS: kernels C + D) and requires the
+same bytes; the 2^20 pin below was fixed from such a run.
 
 Phases, any failure exits non-zero:
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: kernels A to H from quill_tpu_torch/csrc with nvcc (one process
+2. build: kernels A to J from quill_tpu_torch/csrc with nvcc (one process
    per source, all at once) and the host C libraries of native/ (G1
-   arithmetic for the CRS, BLAKE3) with gcc;
-3. kernels: each kernel against its plain twin on the card, exactly, at
-   the shapes the 2^16-row prove gives it, with the times of the kernel
-   wrappers and of the plain twins and the least time the card could take
-   for the same work; the 2^18-point MSMs also against the native host
-   MSM on the tau CRS; the small-route MSM of 4 x 2^16 points against
+   arithmetic, BLAKE3) with gcc;
+3. CRS: the host CRS of 2^18 + 1 points (native host EC, the reference),
+   then the device CRS of 2^22 + 1 points (`setup`: kernel J and one
+   batch inversion); its first 2^18 + 1 points must equal the host CRS and
+   a random sample of later ones the native scalar products tau^i G;
+4. kernels: each kernel against its plain twin on the card, exactly, at
+   the shapes the proves give it, with the times of the kernel wrappers
+   and of the plain twins and the least time the card could take for the
+   same work; the 2^18-point MSMs also against the native host MSM; the
+   small-route MSM of 4 x 2^16 points and a v8 MSM of 2^22 points against
    kernels C and D on the same scalars;
-4. main path: TorchEngine -> setup -> HyperPlonk.preprocess -> prove ->
-   serialize_proof -> verify, with the launch count of every kernel and
-   the MSMs each route took; at 2^16 rows the proof must be 17,936 bytes
-   with the pinned sha256.
+5. main path, 2^16 rows: setup (a CRS of 2^18 + 1 points) ->
+   HyperPlonk.preprocess -> prove -> serialize_proof -> verify; the proof
+   must be 17,936 bytes with the pinned sha256, and no MSM takes v8;
+6. main path, 2^20 rows, on the CRS of phase 3: preprocess -> prove ->
+   serialize_proof -> verify; the proof must have the pinned length and
+   sha256, and some MSMs must take v8.
+Each path prints its phases, its kernel launches and its MSMs by route;
+every kernel must have launched in the CRS build or one of the paths.
 The line before the last is the per-kernel JSON record, the last line the
 device record.
 """
@@ -38,6 +52,13 @@ LOG2_ROWS = 16
 PINNED_LEN = 17936
 PINNED_SHA256 = ("d596d8df073be57fa253899e342fecc900fbb68931588b82"
                  "dacf8c9cf84060c6")
+BIG_LOG2_ROWS = 20
+BIG_PINNED_LEN = 20432
+BIG_PINNED_SHA256 = ("b40f3c3a407bc7352e67c4bb5ec3779d2050f4d7bd2a15863c"
+                     "6fa47a59c8ec91")
+COLS = 4                   # the Fibonacci circuit's columns
+HOST_CRS_DEGREE = 1 << 18  # the 2^16-row path's CRS, checked on the host
+CRS_SAMPLES = 64           # later CRS points checked by native EC
 
 
 # bound model (`bound`): a CIOS Montgomery product of bn254.cuh is
@@ -167,11 +188,14 @@ def points_err(ps, qs) -> int:
         default=0)
 
 
-def kernel_phase(engine, kzg, rng, card):
-    """Each kernel against its plain twin at the shapes the 2^16-row prove
-    gives it (4 columns make its merged tables, its largest products and
-    its C + D MSMs 2^18 long; its small-route MSMs are batches of 4 over
-    2^16 points).  Times are of the kernel wrappers alone."""
+def kernel_phase(engine, kzg, kzg_big, rng, card):
+    """Each kernel against its plain twin at the shapes the proves give it.
+    A to H at the 2^16-row prove's (4 columns make its merged tables, its
+    largest products and its C + D MSMs 2^18 long; its small-route MSMs
+    are batches of 4 over 2^16 points), on the host CRS `kzg`; I, J and
+    E's flagged mode at the 2^20-row prove's (its CRS of 2^22 + 1 points
+    in chunks of 2^16, its v8 MSMs of up to 2^22 points), on `kzg_big`.
+    Times are of the kernel wrappers alone."""
     import torch
 
     from quill_tpu_torch.ec import curve, native_ec
@@ -335,7 +359,8 @@ def kernel_phase(engine, kzg, rng, card):
            shape=f"2^18-point MSM, uniform scalars: {u[0]}",
            max_abs_err=err_c, ms=u[1], plain_ms=u[2],
            id_column_shape=f"2^18-point MSM, scalars 0..2^18-1: {i[0]}",
-           id_column_ms=i[1], id_column_plain_ms=i[2])
+           id_column_ms=i[1], id_column_plain_ms=i[2],
+           id_column_bound_ms=bound(card, *c_work["id column"])["bound_ms"])
     # D: 2 adds per bucket in the segment pass; per segment j a
     # double-and-add by SEG * j and one add, then a 255-add tree
     nseg = M.NBUCK // M.SEG
@@ -444,7 +469,144 @@ def kernel_phase(engine, kzg, rng, card):
     for rec in records[-4:]:
         rec["small_route_batch_ms"] = small_ms
         rec["cd_same_4_msms_ms"] = cd_ms
+    records += v8_kernels(kzg_big, records, card)
     return records
+
+
+def v8_kernels(kzg_big, records, card):
+    """J on one CRS chunk of 2^16 tau powers; I on one v8 chunk's scans
+    (2^16 uniform scalars: 20 windows x 256 lanes of 256 sorted entries,
+    then the block totals, then the triangle's 20 x 32 lanes of 256
+    buckets); E's flagged mode on that chunk's collect; then a v8 MSM of
+    2^22 uniform scalars against kernels C and D."""
+    import torch
+
+    from quill_tpu_torch.ec import curve, msm5, msm8
+    from quill_tpu_torch.ec import device as ed
+    from quill_tpu_torch.ec import fixed_base as fb
+    from quill_tpu_torch.ec import msm as M
+    from quill_tpu_torch.fields import device as fd
+    from quill_tpu_torch.fields.bn254 import R
+    from quill_tpu_torch.pcs.kzg import _tau_from_seed
+
+    bb = kzg_big._basis
+    dev = bb.xy.device
+    out = []
+
+    # J: one launch of the CRS build
+    chunk = fb.CHUNK
+    powers = fd.from_mont(fd.powers(_tau_from_seed(0), chunk, fd.FR, dev),
+                          fd.FR)
+    table = fb.build_table(curve.g1_generator(), dev)
+    err_j = points_err(fb.fixed_base(powers, table),
+                       fb.fixed_base_plain(powers, table))
+    check(err_j == 0, "kernel J disagrees with its plain twin")
+    t_k = cuda_ms(lambda: fb.fixed_base(powers, table))
+    t_p = cuda_ms(lambda: fb.fixed_base_plain(powers, table), reps=1)
+    log(f"kernel J, {chunk} tau powers: {t_k:.3f} ms vs plain {t_p:.3f} ms")
+    crs = bb.length
+    out.append(dict(
+        name="fixed_base", route="cuda",
+        source="quill_tpu_torch/csrc/fixed_base.cu",
+        replaces="quill_tpu/ec/fixed_base.py:89 (_k_fixed_base_chunk, XLA "
+                 "in the TPU build)",
+        shape=f"one CRS chunk: {chunk} tau powers x 64 table adds (the "
+              f"CRS of {crs} points takes {-(-crs // chunk)} launches)",
+        max_abs_err=err_j, ms=t_k, plain_ms=t_p,
+        **bound(card, 12 * fb.FB_WINDOWS * chunk, chunk * (FE + PT)),
+        library_ms=None,
+        crs_bound_ms=bound(card, 12 * fb.FB_WINDOWS * crs,
+                           crs * (FE + PT))["bound_ms"]))
+    del powers
+
+    # I and E on one chunk of a 2^22-point MSM
+    nbig = crs - 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    words = torch.randint(0, 256, (nbig, 32), dtype=torch.uint8,
+                          device=dev, generator=gen).view(torch.int32)
+    words[:, 7] &= 0x0FFFFFFF            # below 2^252 < r: canonical
+    edges = [0, 1, R - 1, R - 2] + [8191 << (13 * w) for w in range(19)]
+    words[:len(edges)] = fd.ints_to_tensor(edges, dev)
+    s_big = fd.to_mont(words, fd.FR)
+    del words
+    canon = fd.from_mont(s_big[:msm8.CHUNK], fd.FR)
+    sorted_d, xs, flags = msm8.chunk_entries(
+        canon, bb.xy[:msm8.CHUNK], bb.inf[:msm8.CHUNK])
+    m, steps = xs.shape[:2]
+    err_i = points_err(msm8.seg_scan(xs, flags).reshape(-1, 3, fd.NLIMB),
+                       msm8.seg_scan_plain(xs, flags).reshape(-1, 3, fd.NLIMB))
+    times = dict(
+        ms=cuda_ms(lambda: msm8.seg_scan(xs, flags)),
+        plain_ms=cuda_ms(lambda: msm8.seg_scan_plain(xs, flags), reps=1))
+    ys, wf, offs = msm8.chunk_scan(xs, flags)
+    nb = m // msm8.NWIN
+    tot = ys[:, -1].reshape(msm8.NWIN, nb, 3, fd.NLIMB).contiguous()
+    tot_f = wf[:, -1].reshape(msm8.NWIN, nb).contiguous()
+    err_i = max(err_i, points_err(
+        msm8.seg_scan(tot, tot_f).reshape(-1, 3, fd.NLIMB),
+        msm8.seg_scan_plain(tot, tot_f).reshape(-1, 3, fd.NLIMB)))
+    times["block_scan_ms"] = cuda_ms(lambda: msm8.seg_scan(tot, tot_f))
+    times["block_scan_plain_ms"] = cuda_ms(
+        lambda: msm8.seg_scan_plain(tot, tot_f), reps=1)
+    sel, a, b, f = msm8.collect_terms(sorted_d, ys, wf, offs)
+    err_e = points_err(msm5.pt_add(a, b, f), msm5.pt_add_plain(a, b, f))
+    check(err_e == 0, "kernel E (flagged, v8 collect) disagrees with its "
+          "plain twin")
+    e_rec = next(r for r in records if r["name"] == "msm5_pt_add")
+    e_rec.update(
+        v8_collect_shape=f"{sel.shape[0]} flagged combines (one v8 chunk's "
+                         f"collect, 2^16 uniform scalars)",
+        v8_collect_ms=cuda_ms(lambda: msm5.pt_add(a, b, f)),
+        v8_collect_plain_ms=cuda_ms(lambda: msm5.pt_add_plain(a, b, f),
+                                    reps=1))
+    acc = msm8.collect(sorted_d, ys, wf, offs,
+                       ed.identity(msm8.NWIN * msm8.NBUCK, dev))
+    rev = acc.reshape(msm8.NWIN, msm8.NBUCK, 3, fd.NLIMB).flip(1).reshape(
+        -1, msm8.BS, 3, fd.NLIMB).contiguous()
+    err_i = max(err_i, points_err(
+        msm8.seg_scan(rev).reshape(-1, 3, fd.NLIMB),
+        msm8.seg_scan_plain(rev).reshape(-1, 3, fd.NLIMB)))
+    check(err_i == 0, "kernel I disagrees with its plain twin")
+    times["triangle_scan_ms"] = cuda_ms(lambda: msm8.seg_scan(rev))
+    times["triangle_scan_plain_ms"] = cuda_ms(
+        lambda: msm8.seg_scan_plain(rev), reps=1)
+    log(f"kernel I, {m} lanes x {steps} steps: {times['ms']:.3f} ms vs "
+        f"plain {times['plain_ms']:.3f} ms; block scan {tot.shape[0]} x "
+        f"{nb}: {times['block_scan_ms']:.3f} ms; triangle scan "
+        f"{rev.shape[0]} x {msm8.BS}: {times['triangle_scan_ms']:.3f} ms; "
+        f"kernel E flagged at the collect's {sel.shape[0]} entries: "
+        f"{e_rec['v8_collect_ms']:.3f} ms")
+    tri_lanes = rev.shape[0]
+    del xs, flags, ys, wf, offs, acc, rev, a, b, f
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = msm8.msm(bb, s_big)
+    torch.cuda.synchronize()
+    v8_s = time.time() - t0
+    t0 = time.time()
+    want = M.msm(bb, s_big)
+    torch.cuda.synchronize()
+    cd_s = time.time() - t0
+    check(got == want, "the v8 MSM of 2^22 points disagrees with kernels "
+          "C and D")
+    log(f"MSM of {nbig} points, uniform scalars: v8 route {v8_s:.3f} s, "
+        f"kernels C + D {cd_s:.3f} s; equal")
+    out.append(dict(
+        name="msm8_seg_scan", route="cuda",
+        source="quill_tpu_torch/csrc/msm8.cu",
+        replaces="quill_tpu/fields/pallas8.py:379 (_seg_scan_kernel)",
+        shape=f"one v8 chunk's scan: {m} lanes x {steps} steps (20 windows "
+              f"x {nb} blocks of 256 sorted entries, 2^16 uniform scalars)",
+        max_abs_err=err_i,
+        **bound(card, 12 * m * steps, m * steps * (2 * PT + 1)),
+        library_ms=None, **times,
+        block_scan_shape=f"{tot.shape[0]} lanes x {nb} steps, flagged",
+        triangle_scan_shape=f"{tri_lanes} lanes x {msm8.BS} steps",
+        v8_msm_s=v8_s, cd_msm_s=cd_s,
+        msm_shape=f"{nbig} points, uniform scalars below 2^252"))
+    return out
 
 
 def profile_prove(hp, witness):
@@ -500,43 +662,68 @@ def fibonacci(rows: int):
     return circuit, witness
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--profile", action="store_true")
-    args = ap.parse_args()
-
-    card = device_phase()
-    sys.path.insert(0, ROOT)
-    import random
-
+def crs_phase(engine, host_kzg, rng):
+    """The device CRS of the 2^20-row path (2^22 + 1 points, `setup`),
+    held against the host CRS: its
+    first 2^18 + 1 points, and CRS_SAMPLES later ones against native
+    scalar products.  -> (kzg, seconds, launches)."""
     import torch
 
-    from quill_tpu_torch.engine.device import TorchEngine
+    from quill_tpu_torch.ec import curve, native_ec
+    from quill_tpu_torch.fields import device as fd
+    from quill_tpu_torch.fields.bn254 import R
+    from quill_tpu_torch.kernels import build
+    from quill_tpu_torch.pcs.kzg import _tau_from_seed
+    from quill_tpu_torch.pcs.setup import setup
+
+    count = COLS << BIG_LOG2_ROWS
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.time()
+    kzg = setup(engine, count)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(build.LAUNCHES)
+    xy = kzg._basis.xy
+    n = host_kzg._basis.length
+    check(torch.equal(xy[:n], host_kzg._basis.xy),
+          f"the device CRS differs from the host CRS on its first {n} points")
+    idx = sorted(rng.sample(range(n, count + 1), CRS_SAMPLES))
+    tau = _tau_from_seed(0)
+    want = native_ec.batch_to_affine(native_ec.scalar_mul_many(
+        curve.g1_generator().to_affine(), [pow(tau, i, R) for i in idx]))
+    got = fd.to_ints(xy[torch.tensor(idx, device=xy.device)].reshape(
+        -1, fd.NLIMB), fd.FQ)
+    check(got == [c for p in want for c in (p.x.v, p.y.v)],
+          "the device CRS differs from native EC at sampled indices")
+    log(f"CRS: {count + 1} points on the device in {secs:.1f}s (kernel J "
+        f"x{launches['fixed_base']}); the first {n} equal the host CRS, "
+        f"{CRS_SAMPLES} sampled later ones equal native EC")
+    return kzg, secs, launches
+
+
+def prove_path(engine, circuit, witness, make_kzg, tag: str):
+    """One main path with the launch counts and MSM routes of its run
+    alone: make_kzg() -> preprocess -> prove -> serialize -> verify."""
+    import torch
+
     from quill_tpu_torch.kernels import build
     from quill_tpu_torch.pcs.mlpcs import MultilinearPCS
-    from quill_tpu_torch.pcs.setup import setup
     from quill_tpu_torch.proof import hyperplonk
     from quill_tpu_torch.proof.hyperplonk import HyperPlonk, TraceWitness
     from quill_tpu_torch.utils.profiling import metrics
     from quill_tpu_torch.utils.proof_io import serialize_proof
 
-    build_phase()
-    rows = 1 << LOG2_ROWS
-    circuit, witness = fibonacci(rows)
-    engine = TorchEngine("cuda")
-    max_degree = circuit.num_cols() * rows
-    t0 = time.time()
-    kzg = setup(engine, max(max_degree, 1 << 16))
-    log(f"setup: CRS of {kzg.max_degree + 1} points, {time.time()-t0:.1f}s")
-
-    records = kernel_phase(engine, kzg, random.Random(1234), card)
-
-    pcs = MultilinearPCS(kzg)
     phases = {}
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     build.reset_counts()
     engine.msm_counts = dict.fromkeys(engine.msm_counts, 0)
     metrics.reset()
+    t0 = time.time()
+    pcs = MultilinearPCS(make_kzg())
+    torch.cuda.synchronize()
+    phases["setup_s"] = time.time() - t0
     t0 = time.time()
     hp = HyperPlonk.preprocess([circuit], pcs)
     torch.cuda.synchronize()
@@ -545,27 +732,101 @@ def main():
     proof = hp.prove([TraceWitness(columns=witness)])
     torch.cuda.synchronize()
     phases["prove_s"] = time.time() - t0
+    phases["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     launches = dict(build.LAUNCHES)
     routes = dict(engine.msm_counts)
     data = serialize_proof(proof)
     t0 = time.time()
-    hyperplonk.verify(proof, hp.to_vk(), pcs, batch_pairings=True)
+    hyperplonk.verify(proof, hp.to_vk(), pcs, batch_pairings=True)  # raises
     phases["verify_s"] = time.time() - t0
     digest = hashlib.sha256(data).hexdigest()
-    log(f"proof: {len(data)} bytes, sha256 {digest}")
-    log("phases: " + json.dumps(phases))
-    log("launches: " + json.dumps(launches))
-    log("MSMs by route (preprocess + prove): " + json.dumps(routes))
+    log(f"{tag} proof: {len(data)} bytes, sha256 {digest}")
+    log(f"{tag} phases: " + json.dumps(phases))
+    log(f"{tag} launches: " + json.dumps(launches))
+    log(f"{tag} MSMs by route (preprocess + prove): " + json.dumps(routes))
     top = sorted(metrics.report().items(), key=lambda kv: -kv[1]["total_sec"])
-    log("host spans (utils/profiling): " + json.dumps(dict(top[:14])))
-    check(len(data) == PINNED_LEN and digest == PINNED_SHA256,
-          "proof bytes differ from the pinned proof")
+    log(f"{tag} host spans (utils/profiling): " + json.dumps(dict(top[:14])))
+    return dict(data=data, digest=digest, launches=launches, routes=routes,
+                hp=hp, pcs=pcs)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--cross-check", action="store_true")
+    args = ap.parse_args()
+
+    card = device_phase()
+    sys.path.insert(0, ROOT)
+    # every CRS is made in this run: one read from the disk cache would
+    # launch no kernel J
+    os.environ["QUILL_CRS_CACHE"] = "0"
+    import random
+
+    import torch
+
+    from quill_tpu_torch.engine.device import TorchEngine
+    from quill_tpu_torch.pcs.kzg import cached_trusted_setup
+    from quill_tpu_torch.pcs.setup import setup
+
+    t_start = time.time()
+    build_phase()
+    engine = TorchEngine("cuda")
+    rng = random.Random(1234)
+    t0 = time.time()
+    host_kzg = cached_trusted_setup(engine, HOST_CRS_DEGREE)
+    log(f"host CRS: {host_kzg.max_degree + 1} points by native EC, "
+        f"{time.time() - t0:.1f}s")
+    kzg_big, crs_s, crs_launches = crs_phase(engine, host_kzg, rng)
+
+    t0 = time.time()
+    records = kernel_phase(engine, host_kzg, kzg_big, rng, card)
+    log(f"kernel phase: {time.time() - t0:.1f}s")
+
+    rows = 1 << LOG2_ROWS
+    circuit, witness = fibonacci(rows)
+    small = prove_path(engine, circuit, witness,
+                       lambda: setup(engine, COLS * rows),
+                       f"2^{LOG2_ROWS}-row")
+    check(len(small["data"]) == PINNED_LEN
+          and small["digest"] == PINNED_SHA256,
+          "the 2^16-row proof differs from the pinned proof")
+    check(small["routes"]["v8"] == 0, "an MSM of the 2^16-row prove took v8")
     if args.profile:
-        profile_prove(hp, witness)
+        profile_prove(small["hp"], witness)
+    small_launches = small["launches"]
+    del small
+
+    t0 = time.time()
+    circuit, witness = fibonacci(1 << BIG_LOG2_ROWS)
+    log(f"2^{BIG_LOG2_ROWS}-row witness: {time.time() - t0:.1f}s")
+    big = prove_path(engine, circuit, witness, lambda: kzg_big,
+                     f"2^{BIG_LOG2_ROWS}-row")
+    check(big["routes"]["v8"] > 0, "no MSM of the 2^20-row prove took v8")
+    if args.cross_check:
+        shift_max = engine.msm_shift_max
+        engine.msm_shift_max = 1 << 40
+        other = prove_path(engine, circuit, witness, lambda: kzg_big,
+                           f"2^{BIG_LOG2_ROWS}-row, no v8")
+        engine.msm_shift_max = shift_max
+        check(other["routes"]["v8"] == 0, "the cross-check prove took v8")
+        check(other["data"] == big["data"],
+              "the 2^20-row proof differs with every MSM off the v8 route")
+        log("cross-check: the 2^20-row proof is the same with every MSM "
+            "off the v8 route")
+        del other
+    check(len(big["data"]) == BIG_PINNED_LEN
+          and big["digest"] == BIG_PINNED_SHA256,
+          "the 2^20-row proof differs from the pinned proof")
+
+    launches = {k: crs_launches[k] + small_launches[k] + v
+                for k, v in big["launches"].items()}
+    log("launches (CRS + both paths): " + json.dumps(launches))
     zero = [k for k, v in launches.items() if v == 0]
     check(not zero, f"kernels never launched on the main path: {zero}")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+    log(f"total: {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"],

@@ -14,8 +14,8 @@ own copy of the JAX package's host modules; this class is what it runs on.
   handoff is by size only.
 - Elementwise ops, scans, `eq_table`, `eval_expr`, `batch_inverse` and
   `quotient_by_linear` are plain torch ops; the sumcheck rounds, the NTT
-  products and the MSMs run the hand-written kernels: A to D, and E to H
-  on the small-MSM route (`msm_route`).
+  products and the MSMs run the hand-written kernels: A and B; C and D,
+  E to H on the small-MSM route, I and E on the v8 route (`msm_route`).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..ec import msm as msm_mod
-from ..ec import msm5
+from ..ec import msm5, msm8
 from ..fields import device as fd
 from ..fields.bn254 import R
 from ..fields.device import FR
@@ -54,14 +54,17 @@ class TorchEngine:
     name = "torch"
 
     def __init__(self, device="cuda", min_device_size: int = 1 << 11,
-                 msm_small_chunks: int = 2, msm_batch: int = 4):
+                 msm_small_chunks: int = 2, msm_batch: int = 4,
+                 msm_shift_max: int = 1 << 20):
         self.device = torch.device(device)
         self.min_device_size = max(1, int(min_device_size))
-        # QUILL_MSM_SMALL_CHUNKS and QUILL_MSM_BATCH of the JAX engine
+        # QUILL_MSM_SMALL_CHUNKS, QUILL_MSM_BATCH and QUILL_MSM_SHIFT_MAX
+        # (its default under the default impl 7) of the JAX engine
         self.msm_small_chunks = int(msm_small_chunks)
         self.msm_batch = max(1, int(msm_batch))
+        self.msm_shift_max = int(msm_shift_max)
         # MSMs by route, and the batched small-route runs they took
-        self.msm_counts = {"small": 0, "small_batches": 0, "cd": 0}
+        self.msm_counts = {"small": 0, "small_batches": 0, "cd": 0, "v8": 0}
         self.host = HostEngine()
 
     # -- representation -------------------------------------------------------
@@ -303,13 +306,16 @@ class TorchEngine:
         return msm_mod.slice_basis(basis, n)
 
     def msm_route(self, basis) -> str:
-        """`engine/device.py:929 TpuEngine._msm_impl` for bases up to
-        2^20 points: a basis of at most `msm_small_chunks` chunks of 2^16
-        points takes the small route (shifted basis + prefix tree, kernels
-        E to H: kernel D's fixed cost loses below ~3 chunks), every other
-        MSM kernels C and D.  Above 2^20 points the JAX engine takes its v8
-        route, which the port has not yet; those stay on C and D."""
+        """`engine/device.py:929 TpuEngine._msm_impl`: a basis whose chunks
+        of 2^16 points hold more than `msm_shift_max` points takes the v8
+        route (`ec/msm8.py`, kernels I and E: no shifted basis, nothing
+        held across chunks but the bucket accumulators); else one of at
+        most `msm_small_chunks` chunks the small route (shifted basis +
+        prefix tree, kernels E to H: kernel D's fixed cost loses below ~3
+        chunks); every other MSM kernels C and D."""
         nch = -(-basis.length // msm5.CHUNK)
+        if nch * msm5.CHUNK > self.msm_shift_max:
+            return "v8"
         return "small" if 0 < nch <= self.msm_small_chunks else "cd"
 
     def _scalars(self, scalars) -> torch.Tensor:
@@ -326,14 +332,17 @@ class TorchEngine:
         if route == "small":
             self.msm_counts["small_batches"] += 1
             return msm5.msm_batch(basis, [s])[0]
+        if route == "v8":
+            return msm8.msm(basis, s)
         return msm_mod.msm(basis, s)
 
     def msm_many(self, jobs: list) -> list:
         """`engine/device.py:993 TpuEngine.msm_many`: jobs over one CRS
         whose widest basis takes the small route run as batched MSMs of
         `msm_batch` jobs (a short group padded with empty MSMs, so every
-        batch has one width); everything else one job at a time.  Each job
-        uses its own basis's length; the batch runs over the widest."""
+        batch has one width); everything else (the C + D and v8 routes)
+        one job at a time, each by its own basis's route.  Each job uses
+        its own basis's length; the batch runs over the widest."""
         if len(jobs) <= 1:
             return [self.msm(b, s) for b, s in jobs]
         widest = max((b for b, _ in jobs), key=lambda b: b.length)

@@ -35,6 +35,8 @@ LIBS = {
     "ntt": "ntt.cu",
     "msm": "msm.cu",
     "msm5": "msm5.cu",
+    "msm8": "msm8.cu",
+    "fixed_base": "fixed_base.cu",
 }
 HEADER = "bn254.cuh"
 HOST_SOURCE = "bn254_host.cpp"
@@ -59,6 +61,8 @@ LAUNCHES = {
     "msm5_tree_up0": 0,      # kernel F
     "msm5_tree_up": 0,       # kernel G
     "msm5_tree_down": 0,     # kernel H
+    "msm8_seg_scan": 0,      # kernel I
+    "fixed_base": 0,         # kernel J
 }
 
 _LOADED: dict = {}

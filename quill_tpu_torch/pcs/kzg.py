@@ -32,6 +32,29 @@ def _crs_cache_dir():
                           os.path.join(root, "build", "crs"))
 
 
+def _crs_cache_path(tau: int, count: int):
+    """On-disk cache path for a device-made CRS (deterministic in (tau,
+    count)); the port's own file name, since it stores its own layout."""
+    import hashlib
+    from pathlib import Path
+
+    base = _crs_cache_dir()
+    if base is None:
+        return None
+    tag = hashlib.sha256(
+        b"crs" + tau.to_bytes(32, "little") + count.to_bytes(8, "little")
+    ).hexdigest()[:24]
+    return Path(base) / f"crs_{tag}_{count}_torch.npy"
+
+
+def _tau_from_seed(seed: int) -> int:
+    import hashlib
+
+    return int.from_bytes(
+        hashlib.sha256(b"quill-tpu-trusted-setup"
+                       + seed.to_bytes(8, "little")).digest(), "little") % R
+
+
 @dataclass
 class KZGOpeningProof:
     """`KZGOpeningProof { x, y, proof }` (`kzg.rs:25-32`)."""
@@ -64,12 +87,8 @@ class KZG:
         """Deterministic τ-powers CRS.  The reference samples generators and τ
         from an RNG (`kzg.rs:35-59`); we derive them from a seed (τ is toxic
         waste either way; CRS bytes are not transcript material)."""
-        import hashlib
-
         if tau is None:
-            tau = int.from_bytes(
-                hashlib.sha256(b"quill-tpu-trusted-setup" + seed.to_bytes(8, "little")).digest(),
-                "little") % R
+            tau = _tau_from_seed(seed)
         g1 = curve.g1_generator()
         g2 = curve.g2_generator()
         # successive powers: g1 * tau^i, computed as repeated scalar products of
@@ -86,6 +105,54 @@ class KZG:
         g1_points = curve.batch_to_affine(g1_jac)
         g2_points = [g2, g2.scalar_mul(tau)]
         return KZG(engine, max_degree, g1_points, g2_points, g1, g2)
+
+    @staticmethod
+    def device_setup(engine, max_degree: int, tau: int | None = None,
+                     seed: int = 0) -> "KZG":
+        """CRS made on the engine's device (`quill_tpu/pcs/kzg.py:106`):
+        fixed-base tau powers (`ec/fixed_base.py`, kernel J), the same
+        points as `trusted_setup` with the same seed.  The (n, 2, 8) affine
+        tensor is cached on disk (`_crs_cache_dir`); the basis stays on the
+        device and `g1_points` is None."""
+        import os
+
+        import numpy as np
+        import torch
+
+        from ..ec.fixed_base import device_tau_powers
+        from ..ec.msm import TorchBasis
+
+        if tau is None:
+            tau = _tau_from_seed(seed)
+        count = max_degree + 1
+        dev = engine.device
+        path = _crs_cache_path(tau, count)
+        if path is not None and path.exists():
+            xy = torch.from_numpy(np.load(path)).to(dev)
+        else:
+            xy = device_tau_powers(tau, count, dev)
+            if path is not None:
+                try:
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+                    with open(tmp, "wb") as f:
+                        np.save(f, xy.cpu().numpy())
+                    tmp.replace(path)
+                except OSError:
+                    pass
+        basis = TorchBasis(xy=xy, inf=torch.zeros(count, dtype=torch.bool,
+                                                  device=dev), length=count)
+        g1 = curve.g1_generator()
+        g2 = curve.g2_generator()
+        kzg = KZG.__new__(KZG)
+        kzg.engine = engine
+        kzg.max_degree = max_degree
+        kzg.g1 = g1
+        kzg.g2 = g2
+        kzg.g1_points = None
+        kzg.g2_points = [g2, g2.scalar_mul(tau)]
+        kzg._basis = basis
+        return kzg
 
     # -- core ops ------------------------------------------------------------
 

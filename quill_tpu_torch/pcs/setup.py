@@ -1,20 +1,15 @@
-"""KZG setup for the port.
-
-Counterpart of `quill_tpu/pcs/kzg.py:106 KZG.device_setup`, which builds
-the CRS with the TPU fixed-base kernel.  The port takes the host setup of
-its own `pcs/kzg.py` instead: `cached_trusted_setup` derives tau from the
-seed exactly as `device_setup` does, so the CRS points, and with them the
-proof bytes, are the same.  The G1 powers are computed by the native C
-backend (`native/ec_g1.c`, built by `kernels/build.py: native_lib` at first
-use) and cached on disk (`build/crs/`, or `QUILL_CRS_CACHE_DIR`).
-`KZG.__init__` then loads the points onto the engine's device
-(`TorchEngine.load_points`).
+"""KZG setup for the port, as `scripts/prove_tpu.py:68` sets up the JAX
+prover: `KZG.device_setup` (`pcs/kzg.py`), the CRS made on the engine's
+device by fixed-base tau powers (kernel J), cached on disk (`build/crs/`;
+`QUILL_CRS_CACHE_DIR` moves it, `QUILL_CRS_CACHE=0` turns it off).  Tau
+comes from the seed as in `KZG.trusted_setup`, so the CRS points, and with
+them the proof bytes, are those of the host setup.
 """
 
 from __future__ import annotations
 
-from .kzg import KZG, cached_trusted_setup
+from .kzg import KZG
 
 
 def setup(engine, max_degree: int, seed: int = 0) -> KZG:
-    return cached_trusted_setup(engine, max_degree, seed)
+    return KZG.device_setup(engine, max_degree, seed=seed)

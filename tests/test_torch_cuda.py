@@ -1,4 +1,4 @@
-"""Kernels A to H on the card against their plain twins, exactly.
+"""Kernels A to J on the card against their plain twins, exactly.
 
 These need an NVIDIA GPU with nvcc (they build the kernels from
 `quill_tpu_torch/csrc`) and skip elsewhere; whether a card is present is
@@ -114,3 +114,42 @@ def test_kernels_e_to_h_match_plain(dev):
     assert build.LAUNCHES["msm5_tree_up0"] == before + 1
     for s, out in zip(scalars, got):
         assert out == M.msm(basis, s)
+
+
+def test_kernel_i_matches_plain(dev, monkeypatch):
+    """Kernel I with flags, without flags, and the whole v8 MSM (two
+    chunks, the second short) against kernels C and D."""
+    from quill_tpu_torch.ec import msm8
+
+    g = curve.g1_generator()
+    pts = [g.scalar_mul(k + 2).to_affine() for k in range(300)]
+    pts[9] = curve.Affine(curve.Fq(0), curve.Fq(0), infinity=True)
+    basis = M.load_basis(pts, dev)
+    p = torch.cat((basis.xy, fd.const(1, fd.FQ, dev).expand(300, 1, 8)), 1)
+    xs = p[10:266].reshape(8, 32, 3, fd.NLIMB).contiguous()
+    flags = torch.rand((8, 32), device=dev) < 0.3
+    for f in (flags, None):
+        assert torch.equal(msm8.seg_scan(xs, f), msm8.seg_scan_plain(xs, f))
+    ints = [RNG.randrange(R) for _ in range(300)]
+    ints[:3] = [0, 1, R - 1]
+    s = fd.from_ints(ints, fd.FR, dev)
+    before = build.LAUNCHES["msm8_seg_scan"]
+    monkeypatch.setattr(msm8, "CHUNK", 256)
+    got = msm8.msm(basis, s)
+    assert build.LAUNCHES["msm8_seg_scan"] > before
+    assert got == M.msm(basis, s) == curve.msm_host(pts, ints)
+
+
+def test_kernel_j_matches_plain(dev):
+    from quill_tpu_torch.ec import fixed_base as fb
+
+    table = fb.build_table(curve.g1_generator(), dev)
+    ints = [RNG.randrange(R) for _ in range(1000)] + [0, 1, R - 1]
+    s = fd.ints_to_tensor(ints, dev)
+    before = build.LAUNCHES["fixed_base"]
+    got = fb.fixed_base(s, table)
+    assert build.LAUNCHES["fixed_base"] == before + 1
+    assert torch.equal(got, fb.fixed_base_plain(s, table))
+    g = curve.g1_generator()
+    for k, p in zip(ints[-3:], ed.proj_to_jacobians(got[-3:])):
+        assert p == g.scalar_mul(k)

@@ -81,9 +81,16 @@ def test_msm_many_short_and_empty(engine, general_points):
 
 
 def test_tau_crs(engine):
+    """The setup's CRS is made on the engine's device and keeps no host
+    points; the JAX package's host setup with the same seed gives them."""
+    from quill_tpu.engine.host import HostEngine
+    from quill_tpu.pcs.kzg import KZG as JaxKZG
+
     kzg = setup(engine, 255)
+    assert kzg.g1_points is None
     scalars = [RNG.randrange(R) for _ in range(256)]
     scalars[:3] = [0, 1, R - 1]
     got = engine.msm(engine.basis_slice(kzg._basis, 256),
                      engine.vec_from_ints(scalars))
-    assert got == curve.msm_host(kzg.g1_points, scalars)
+    host = JaxKZG.trusted_setup(HostEngine(), 255)
+    assert got == curve.msm_host(host.g1_points, scalars)

@@ -2,8 +2,9 @@
 plain twins on the CPU) against the JAX package.
 
 - digits equal `quill_tpu.ec.msm._extract_digits`;
-- the engine's route equals `TpuEngine._msm_impl` for 1 to 16 chunks,
-  and `msm_many` batches small-route jobs in padded groups;
+- the engine's route equals `TpuEngine._msm_impl` for 1 to 70 chunks,
+  under the default and other `msm_shift_max` bounds, and `msm_many`
+  batches small-route jobs in padded groups;
 - shifted-basis rows equal 2^(13 w) G_i by `quill_tpu.ec.curve`;
 - the prefix tree's wiring: with integers in place of points it gives
   running sums (as `tests/test_msm_tree.py` checks the TPU tree);
@@ -81,20 +82,33 @@ def test_digits_match_extract_digits():
     assert np.array_equal(got.T, want)
 
 
-def test_route_matches_device_engine():
-    """1 and 2 chunks take the small route (JAX v5), 3 to 16 kernels C and
-    D (JAX v7).  Above 16 chunks (2^20 points) the JAX engine takes v8,
-    which the port has not yet: those stay on C and D."""
+JAX_ROUTE = {"5": "small", "7": "cd", "8": "v8"}
+
+
+@pytest.mark.parametrize("shift_max", [None, 0, 3 << 16, 1 << 22])
+def test_route_matches_device_engine(shift_max, monkeypatch):
+    """By default 1 and 2 chunks take the small route (JAX v5), 3 to 16
+    kernels C and D (JAX v7), 17 to 70 (above 2^20 points) the v8 route
+    (JAX v8); `msm_shift_max` moves the v8 bound as QUILL_MSM_SHIFT_MAX
+    does, and at 0 v8 wins over the small route."""
     from quill_tpu.engine.device import TpuEngine
 
-    eng = TorchEngine("cpu")
-    jax_route = {"5": "small", "7": "cd", "8": "cd"}
-    for k in range(1, 21):
+    monkeypatch.delenv("QUILL_MSM_IMPL", raising=False)
+    monkeypatch.delenv("QUILL_MSM_SMALL_CHUNKS", raising=False)
+    if shift_max is None:
+        monkeypatch.delenv("QUILL_MSM_SHIFT_MAX", raising=False)
+        eng = TorchEngine("cpu")
+    else:
+        monkeypatch.setenv("QUILL_MSM_SHIFT_MAX", str(shift_max))
+        eng = TorchEngine("cpu", msm_shift_max=shift_max)
+    limit = 1 << 20 if shift_max is None else shift_max
+    for k in range(1, 71):
         want = TpuEngine._msm_impl(types.SimpleNamespace(x_chunks=[0] * k))
-        assert want == ("5" if k <= 2 else "7" if k <= 16 else "8")
+        assert want == ("8" if k * msm5.CHUNK > limit
+                        else "5" if k <= 2 else "7")
         for length in (k * msm5.CHUNK - 5, k * msm5.CHUNK):
             got = eng.msm_route(types.SimpleNamespace(length=length))
-            assert got == jax_route[want], (k, length)
+            assert got == JAX_ROUTE[want], (k, length)
 
 
 def test_msm_many_batches_in_padded_groups(basis, points, monkeypatch):
@@ -113,7 +127,8 @@ def test_msm_many_batches_in_padded_groups(basis, points, monkeypatch):
             for n in lengths]
     got = eng.msm_many(jobs)
     assert widths == [4, 4]
-    assert eng.msm_counts == {"small": 6, "small_batches": 2, "cd": 0}
+    assert eng.msm_counts == {"small": 6, "small_batches": 2, "cd": 0,
+                              "v8": 0}
     for (b, s), out in zip(jobs, got):
         ints = [int(x) for x in eng.vec_to_ints(s)]
         assert out == curve.msm_host(points[:len(ints)], ints)
@@ -121,10 +136,12 @@ def test_msm_many_batches_in_padded_groups(basis, points, monkeypatch):
     other = M.load_basis(points[:16], "cpu")
     eng = TorchEngine("cpu", min_device_size=1)
     assert eng.msm_many([jobs[0], (other, jobs[1][1])]) == got[:2]
-    assert eng.msm_counts == {"small": 2, "small_batches": 2, "cd": 0}
+    assert eng.msm_counts == {"small": 2, "small_batches": 2, "cd": 0,
+                              "v8": 0}
     eng = TorchEngine("cpu", min_device_size=1, msm_small_chunks=0)
     assert eng.msm_many(jobs[:2]) == got[:2]
-    assert eng.msm_counts == {"small": 0, "small_batches": 0, "cd": 2}
+    assert eng.msm_counts == {"small": 0, "small_batches": 0, "cd": 2,
+                              "v8": 0}
 
 
 def test_shifted_basis_entries(points):
