@@ -1,8 +1,9 @@
 """Prove and verify HyperPlonk proofs with quill_tpu_torch on one NVIDIA GPU:
 the 2^16-row Fibonacci proof (every MSM on the small route or kernels C +
-D) and the 2^20-row one (its largest MSMs on the v8 route), after checking
-the device CRS against the host CRS and every hand-written kernel against
-its plain PyTorch twin on the card.
+D), the same proof with the v6 MSM route (`msm_impl="6"`) and the 2^20-row
+one (its largest MSMs on the v8 route), after checking the device CRS
+against the host CRS, every hand-written kernel against its plain PyTorch
+twin on the card, and running the field bench.
 
 Usage (from the root of a checkout):
     python3 chip_smoke.py [--profile] [--cross-check]
@@ -14,7 +15,7 @@ same bytes; the 2^20 pin below was fixed from such a run.
 
 Phases, any failure exits non-zero:
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: kernels A to J from quill_tpu_torch/csrc with nvcc (one process
+2. build: kernels A to L from quill_tpu_torch/csrc with nvcc (one process
    per source, all at once) and the host C libraries of native/ (G1
    arithmetic, BLAKE3) with gcc;
 3. CRS: the host CRS of 2^18 + 1 points (native host EC, the reference),
@@ -25,18 +26,23 @@ Phases, any failure exits non-zero:
    the shapes the proves give it, with the times of the kernel wrappers
    and of the plain twins and the least time the card could take for the
    same work; the 2^18-point MSMs also against the native host MSM; the
-   small-route MSM of 4 x 2^16 points and a v8 MSM of 2^22 points against
-   kernels C and D on the same scalars;
-5. main path, 2^16 rows: setup (a CRS of 2^18 + 1 points) ->
+   small-route MSM of 4 x 2^16 points, v6 MSMs of 2^18 and 2^20 points and
+   a v8 MSM of 2^22 points against kernels C and D on the same scalars;
+5. field bench (`python -m quill_tpu_torch.bench_field`): kernel L's
+   products and kernel E's elementwise adds against x y mod p, the host
+   curve and their plain twins, and their rates on the card;
+6. main path, 2^16 rows: setup (a CRS of 2^18 + 1 points) ->
    HyperPlonk.preprocess -> prove -> serialize_proof -> verify; the proof
    must be 17,936 bytes with the pinned sha256, and no MSM takes v8;
-6. main path, 2^20 rows, on the CRS of phase 3: preprocess -> prove ->
+7. the same with `TorchEngine(msm_impl="6")` on a CRS of its own: the same
+   bytes, some MSMs on v6 and none on C + D or v8;
+8. main path, 2^20 rows, on the CRS of phase 3: preprocess -> prove ->
    serialize_proof -> verify; the proof must have the pinned length and
    sha256, and some MSMs must take v8.
 Each path prints its phases, its kernel launches and its MSMs by route;
-every kernel must have launched in the CRS build or one of the paths.
-The line before the last is the per-kernel JSON record, the last line the
-device record.
+every kernel must have launched in the CRS build, the field bench or one
+of the paths.  The line before the last is the per-kernel JSON record, the
+last line the device record.
 """
 
 import argparse
@@ -59,14 +65,15 @@ BIG_PINNED_SHA256 = ("b40f3c3a407bc7352e67c4bb5ec3779d2050f4d7bd2a15863c"
 COLS = 4                   # the Fibonacci circuit's columns
 HOST_CRS_DEGREE = 1 << 18  # the 2^16-row path's CRS, checked on the host
 CRS_SAMPLES = 64           # later CRS points checked by native EC
+# v6 MSMs of the kernel phase: the 2^16-row prove's largest, and the
+# route's largest (a flat space of 2^24 leaves)
+V6_POINTS = (1 << 18, 1 << 20)
+FIELD_N = 1 << 18          # kernel L's products in the kernel phase
 
 
-# bound model (`bound`): a CIOS Montgomery product of bn254.cuh is
-# 8 x (8 + 8) 32x32->64-bit multiply-adds, each a low and a high 32-bit
-# IMAD, plus 8 low products for m: 264 IMADs.  Hopper issues 64 32-bit
-# IMADs per SM per clock; HBM3 on the H100 SXM moves 3.35 TB/s.
-IMADS_PER_PRODUCT = 264
-IMADS_PER_SM_CLOCK = 64
+# bound model (`bound`): the field products' 32-bit IMADs at the card's
+# peak int32 multiply-add rate (`quill_tpu_torch/bench_field.py`), or
+# the bytes at HBM3's 3.35 TB/s on the H100 SXM
 HBM_BYTES_PER_S = 3.35e12
 PT = 96                    # bytes of one (3, 8) int32 projective point
 AFF = 64                   # bytes of one (2, 8) int32 affine point
@@ -108,6 +115,9 @@ def device_phase():
 def bound(card, products: float, nbytes: float) -> dict:
     """The least time the card could take: the larger of the field products'
     IMADs over the int32 multiply-add rate and the bytes over HBM's rate."""
+    from quill_tpu_torch.bench_field import (IMADS_PER_PRODUCT,
+                                             IMADS_PER_SM_CLOCK)
+
     ops_ms = 1e3 * products * IMADS_PER_PRODUCT / (
         card["sms"] * IMADS_PER_SM_CLOCK * card["clock_mhz"] * 1e6)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -186,6 +196,22 @@ def points_err(ps, qs) -> int:
     return max([point_err(p, q) for p, q in zip(
         ed.proj_to_jacobians(ps[bad]), ed.proj_to_jacobians(qs[bad]))],
         default=0)
+
+
+def uniform_scalars(n: int, dev, seed: int, edges=()):
+    """n uniform canonical Fr scalars below 2^252 (< r), made on the card
+    from a seed, the first ones replaced by `edges`, in Montgomery form."""
+    import torch
+
+    from quill_tpu_torch.fields import device as fd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    words = torch.randint(0, 256, (n, 32), dtype=torch.uint8, device=dev,
+                          generator=gen).view(torch.int32)
+    words[:, 7] &= 0x0FFFFFFF
+    words[:len(edges)] = fd.ints_to_tensor(list(edges), dev)
+    return fd.to_mont(words, fd.FR)
 
 
 def kernel_phase(engine, kzg, kzg_big, rng, card):
@@ -469,8 +495,142 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     for rec in records[-4:]:
         rec["small_route_batch_ms"] = small_ms
         rec["cd_same_4_msms_ms"] = cd_ms
+    records += v6_kernels(kzg, kzg_big, card)
+    records.append(field_kernel(dev, rng, card))
     records += v8_kernels(kzg_big, records, card)
     return records
+
+
+def v6_kernels(kzg, kzg_big, card):
+    """v6 MSMs of 2^18 points (the 2^16-row prove's largest v6 MSM) on the
+    host CRS and of 2^20 points (the route's largest: a flat space of 2^24
+    leaves) on the big CRS, each against kernels C + D on the same uniform
+    scalars, both timed once warm; kernel K against its plain twin on the
+    2^18-point MSM's 2^21 leaf pairs.  Each MSM runs on a basis object of
+    its own, so its shifted basis is freed after it and the v6 prove
+    builds its own on the main path."""
+    import torch
+
+    from quill_tpu_torch.ec import msm as M
+    from quill_tpu_torch.ec import msm6
+    from quill_tpu_torch.fields import device as fd
+    from quill_tpu_torch.fields.bn254 import R
+
+    dev = kzg._basis.xy.device
+    times = {}
+    for root, n in ((kzg._basis, V6_POINTS[0]), (kzg_big._basis,
+                                                  V6_POINTS[1])):
+        tag = f"2^{n.bit_length() - 1}"
+        own = M.TorchBasis(xy=root.xy, inf=root.inf, length=root.length)
+        bs, bs_cd = M.slice_basis(own, n), M.slice_basis(root, n)
+        s = uniform_scalars(n, dev, n + 6, [0, 1, R - 1, R - 2] + [
+            0xFFFF << (16 * w) for w in range(15)])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sh = msm6.shifted(bs, n)
+        torch.cuda.synchronize()
+        times[f"shifted_basis_{tag}_s"] = time.time() - t0
+        got = msm6.msm(bs, s)
+        check(got == M.msm(bs_cd, s),
+              f"the v6 MSM of {tag} points disagrees with kernels C and D")
+        for route, fn in (("v6", lambda: msm6.msm(bs, s)),
+                          ("cd", lambda: M.msm(bs_cd, s))):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            times[f"{route}_msm_{tag}_s"] = time.time() - t0
+        log(f"MSM of {n} points, uniform scalars: v6 route "
+            f"{times[f'v6_msm_{tag}_s']:.3f} s, kernels C + D "
+            f"{times[f'cd_msm_{tag}_s']:.3f} s; equal (shifted basis "
+            f"{sh.shape[0]} x {sh.shape[1]} points built in "
+            f"{times[f'shifted_basis_{tag}_s']:.3f} s)")
+        if n == V6_POINTS[0]:
+            flat = sh.reshape(-1, 2, fd.NLIMB)
+            _, idx = msm6.sort_keys(fd.from_mont(s, fd.FR), bs.inf,
+                                    sh.shape[1])
+            err = points_err(msm6.level0(flat, idx),
+                             msm6.level0_plain(flat, idx))
+            check(err == 0, "kernel K disagrees with its plain twin")
+            k = idx.shape[0] // 2
+            rec = dict(
+                name="msm6_level0", route="cuda",
+                source="quill_tpu_torch/csrc/msm6.cu",
+                replaces="quill_tpu/ec/msm6k.py:58 (_lvl0_kernel)",
+                shape=f"{k} affine leaf pairs gathered through the sort "
+                      f"(a v6 MSM of {n} points: 16 x {n} leaves)",
+                max_abs_err=err, ms=cuda_ms(lambda: msm6.level0(flat, idx)),
+                plain_ms=cuda_ms(lambda: msm6.level0_plain(flat, idx),
+                                 reps=1),
+                **bound(card, 9 * k, k * (2 * 4 + 2 * AFF + PT)),
+                library_ms=None)
+            log(f"kernel K, {k} pairs: {rec['ms']:.3f} ms vs plain "
+                f"{rec['plain_ms']:.3f} ms")
+            del flat, idx
+        del own, bs, sh, s
+    rec.update(times)
+    return [rec]
+
+
+def field_kernel(dev, rng, card):
+    """Kernel L against `fd.mul` on 2^18 elements of Fr and of Fq."""
+    from quill_tpu_torch.fields import device as fd
+    from quill_tpu_torch.fields import vec
+
+    n = FIELD_N
+    out = {}
+    for f in (fd.FR, fd.FQ):
+        a = fd.from_ints([rng.randrange(f.modulus) for _ in range(n)], f, dev)
+        b = a.roll(1, 0).contiguous()
+        err = tensor_err(vec.mont_mul_vec(a, b, f),
+                         vec.mont_mul_vec_plain(a, b, f))
+        check(err == 0, f"kernel L ({f.name}) disagrees with its plain twin")
+        out[f.name] = (err, cuda_ms(lambda: vec.mont_mul_vec(a, b, f)),
+                       cuda_ms(lambda: vec.mont_mul_vec_plain(a, b, f)))
+        log(f"kernel L, {n} {f.name} products: {out[f.name][1]:.3f} ms vs "
+            f"plain (fd.mul) {out[f.name][2]:.3f} ms")
+    return dict(
+        name="field_mul", route="cuda", source="quill_tpu_torch/csrc/field.cu",
+        replaces="quill_tpu/fields/pallas8.py:113 (_mul_kernel)",
+        shape=f"{n} elementwise Fr Montgomery products",
+        max_abs_err=max(out["fr"][0], out["fq"][0]), ms=out["fr"][1],
+        plain_ms=out["fr"][2], **bound(card, n, 3 * n * FE), library_ms=None,
+        fq_ms=out["fq"][1], fq_plain_ms=out["fq"][2])
+
+
+def field_bench(card, records):
+    """The field bench (`quill_tpu_torch/bench_field.py`): exactness, then
+    the chained rates of kernels L and E, added to their records.  -> its
+    launches."""
+    import torch
+
+    from quill_tpu_torch import bench_field
+    from quill_tpu_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_counts()
+    res = bench_field.run("cuda", clock=card["clock_mhz"])   # raises
+    launches = dict(build.LAUNCHES)
+    log(f"field bench: exact ({json.dumps(res['exact'])}); mont_mul_vec "
+        f"{res['mont_mul_products_s'] / 1e9:.2f} G products/s "
+        f"({1e3 * res['mont_mul_ms']:.2f} us a launch of "
+        f"{res['mont_mul_n']}, {100 * res['mont_mul_share_of_model']:.1f}% "
+        f"of the bound model), fd.mul {res['fd_mul_ms']:.3f} ms; pt_add_vec "
+        f"{res['pt_adds_s'] / 1e6:.1f} M adds/s ({1e3 * res['pt_add_ms']:.2f}"
+        f" us a launch of {res['pt_add_n']}, "
+        f"{100 * res['pt_add_share_of_model']:.1f}% of the model)")
+    log("field bench: " + json.dumps(res))
+    by_name = {r["name"]: r for r in records}
+    by_name["field_mul"].update(
+        bench_chain_ms=res["mont_mul_ms"],
+        bench_products_s=res["mont_mul_products_s"],
+        bench_share_of_model=res["mont_mul_share_of_model"],
+        bench_fd_mul_ms=res["fd_mul_ms"])
+    by_name["msm5_pt_add"].update(
+        bench_pt_add_vec_chain_ms=res["pt_add_ms"],
+        bench_pt_adds_s=res["pt_adds_s"],
+        bench_share_of_model=res["pt_add_share_of_model"])
+    return launches
 
 
 def v8_kernels(kzg_big, records, card):
@@ -521,15 +681,8 @@ def v8_kernels(kzg_big, records, card):
 
     # I and E on one chunk of a 2^22-point MSM
     nbig = crs - 1
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1234)
-    words = torch.randint(0, 256, (nbig, 32), dtype=torch.uint8,
-                          device=dev, generator=gen).view(torch.int32)
-    words[:, 7] &= 0x0FFFFFFF            # below 2^252 < r: canonical
-    edges = [0, 1, R - 1, R - 2] + [8191 << (13 * w) for w in range(19)]
-    words[:len(edges)] = fd.ints_to_tensor(edges, dev)
-    s_big = fd.to_mont(words, fd.FR)
-    del words
+    s_big = uniform_scalars(nbig, dev, 1234, [0, 1, R - 1, R - 2] + [
+        8191 << (13 * w) for w in range(19)])
     canon = fd.from_mont(s_big[:msm8.CHUNK], fd.FR)
     sorted_d, xs, flags = msm8.chunk_entries(
         canon, bb.xy[:msm8.CHUNK], bb.inf[:msm8.CHUNK])
@@ -630,7 +783,8 @@ def profile_prove(hp, witness):
     log(f"profile: wall {wall:.3f}s, device busy {busy_us / 1e6:.3f}s "
         f"({100 * busy_us / 1e6 / wall:.1f}%)")
     rows.sort(key=lambda e: -e.self_device_time_total)
-    ours = ("sumcheck_", "ntt_stage", "bucket_", "pt_add", "tree_")
+    ours = ("sumcheck_", "ntt_stage", "bucket_", "pt_add", "tree_",
+            "seg_scan", "level0_", "mont_mul_")
     for i, e in enumerate(rows):
         if i < 12 or e.key.startswith(ours):
             log(f"  {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.1f} "
@@ -782,6 +936,9 @@ def main():
     t0 = time.time()
     records = kernel_phase(engine, host_kzg, kzg_big, rng, card)
     log(f"kernel phase: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    field_launches = field_bench(card, records)
+    log(f"field bench phase: {time.time() - t0:.1f}s")
 
     rows = 1 << LOG2_ROWS
     circuit, witness = fibonacci(rows)
@@ -796,6 +953,20 @@ def main():
         profile_prove(small["hp"], witness)
     small_launches = small["launches"]
     del small
+
+    t0 = time.time()
+    engine6 = TorchEngine("cuda", msm_impl="6")
+    v6 = prove_path(engine6, circuit, witness,
+                    lambda: setup(engine6, COLS * rows),
+                    f"2^{LOG2_ROWS}-row, msm_impl 6")
+    check(len(v6["data"]) == PINNED_LEN and v6["digest"] == PINNED_SHA256,
+          "the 2^16-row proof on the v6 route differs from the pinned proof")
+    check(v6["routes"]["v6"] > 0 and v6["routes"]["v8"] == 0
+          and "cd" not in v6["routes"],
+          "the msm_impl 6 prove took no v6 MSM, or took C + D or v8")
+    v6_launches = v6["launches"]
+    del v6, engine6
+    log(f"2^{LOG2_ROWS}-row path on v6: {time.time() - t0:.1f}s")
 
     t0 = time.time()
     circuit, witness = fibonacci(1 << BIG_LOG2_ROWS)
@@ -819,9 +990,10 @@ def main():
           and big["digest"] == BIG_PINNED_SHA256,
           "the 2^20-row proof differs from the pinned proof")
 
-    launches = {k: crs_launches[k] + small_launches[k] + v
-                for k, v in big["launches"].items()}
-    log("launches (CRS + both paths): " + json.dumps(launches))
+    launches = {k: crs_launches[k] + field_launches[k] + small_launches[k]
+                + v6_launches[k] + v for k, v in big["launches"].items()}
+    log("launches (CRS, field bench and the three paths): "
+        + json.dumps(launches))
     zero = [k for k, v in launches.items() if v == 0]
     check(not zero, f"kernels never launched on the main path: {zero}")
     for rec in records:

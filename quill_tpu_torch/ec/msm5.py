@@ -207,14 +207,16 @@ def chunk_points(root: TorchBasis, j: int):
     return torch.cat((xy, one), 1).contiguous(), inf
 
 
-def shift_ladder(p, plain: bool = False):
-    """(n, 3, 8) points -> (NWIN, n, 3, 8), window w holding 2^(13 w) p:
-    19 rounds of 13 doublings, each a kernel E launch (247 in all)."""
+def shift_ladder(p, plain: bool = False, nwin: int = NWIN,
+                 wbits: int = WBITS):
+    """(n, 3, 8) points -> (nwin, n, 3, 8), window w holding 2^(wbits w) p:
+    nwin - 1 rounds of wbits doublings, each a kernel E launch (247 in all
+    for this route's 20 windows of 13 bits)."""
     add = pt_add_plain if plain else pt_add
     wins = [p]
-    for _ in range(NWIN - 1):
+    for _ in range(nwin - 1):
         cur = wins[-1]
-        for _ in range(WBITS):
+        for _ in range(wbits):
             cur = add(cur, cur)
         wins.append(cur)
     return torch.stack(wins, 0)

@@ -15,7 +15,9 @@ own copy of the JAX package's host modules; this class is what it runs on.
 - Elementwise ops, scans, `eq_table`, `eval_expr`, `batch_inverse` and
   `quotient_by_linear` are plain torch ops; the sumcheck rounds, the NTT
   products and the MSMs run the hand-written kernels: A and B; C and D,
-  E to H on the small-MSM route, I and E on the v8 route (`msm_route`).
+  E to H on the small-MSM route, K, G and E on the v6 route, I and E on the
+  v8 route (`msm_route`, chosen by `msm_impl` as `QUILL_MSM_IMPL` chooses
+  in the JAX engine).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..ec import msm as msm_mod
-from ..ec import msm5, msm8
+from ..ec import msm5, msm6, msm8
 from ..fields import device as fd
 from ..fields.bn254 import R
 from ..fields.device import FR
@@ -32,6 +34,15 @@ from ..poly import ntt
 from . import sumcheck
 from .expr import compile_expr, const_tensor, eval_program_w
 from .host import HostEngine
+
+
+# routes each msm_impl can take (`TorchEngine.msm_route`)
+MSM_ROUTES = {
+    "5": ("small", "v8"),
+    "6": ("small", "v6", "v8"),
+    "7": ("small", "cd", "v8"),
+    "8": ("v8",),
+}
 
 
 class TVec:
@@ -54,17 +65,27 @@ class TorchEngine:
     name = "torch"
 
     def __init__(self, device="cuda", min_device_size: int = 1 << 11,
-                 msm_small_chunks: int = 2, msm_batch: int = 4,
-                 msm_shift_max: int = 1 << 20):
+                 msm_impl: str = "7", msm_small_chunks: int = 2,
+                 msm_batch: int = 4, msm_shift_max: int | None = None):
         self.device = torch.device(device)
         self.min_device_size = max(1, int(min_device_size))
-        # QUILL_MSM_SMALL_CHUNKS, QUILL_MSM_BATCH and QUILL_MSM_SHIFT_MAX
-        # (its default under the default impl 7) of the JAX engine
+        # QUILL_MSM_IMPL, QUILL_MSM_SMALL_CHUNKS, QUILL_MSM_BATCH and
+        # QUILL_MSM_SHIFT_MAX of the JAX engine (`engine/device.py:929-954`)
+        self.msm_impl = str(msm_impl)
+        if self.msm_impl not in MSM_ROUTES:
+            raise ValueError(
+                f"msm_impl {self.msm_impl!r}: the port has the MSM routes of "
+                f"impls {sorted(MSM_ROUTES)} (1 and 3 are not ported)")
         self.msm_small_chunks = int(msm_small_chunks)
         self.msm_batch = max(1, int(msm_batch))
+        if msm_shift_max is None:
+            msm_shift_max = 1 << (20 if self.msm_impl in ("6", "7") else 21)
         self.msm_shift_max = int(msm_shift_max)
-        # MSMs by route, and the batched small-route runs they took
-        self.msm_counts = {"small": 0, "small_batches": 0, "cd": 0, "v8": 0}
+        # MSMs by route (the routes this impl can take), and the batched
+        # small-route runs they took
+        self.msm_counts = dict.fromkeys(MSM_ROUTES[self.msm_impl], 0)
+        if "small" in self.msm_counts:
+            self.msm_counts["small_batches"] = 0
         self.host = HostEngine()
 
     # -- representation -------------------------------------------------------
@@ -306,17 +327,24 @@ class TorchEngine:
         return msm_mod.slice_basis(basis, n)
 
     def msm_route(self, basis) -> str:
-        """`engine/device.py:929 TpuEngine._msm_impl`: a basis whose chunks
-        of 2^16 points hold more than `msm_shift_max` points takes the v8
-        route (`ec/msm8.py`, kernels I and E: no shifted basis, nothing
-        held across chunks but the bucket accumulators); else one of at
-        most `msm_small_chunks` chunks the small route (shifted basis +
-        prefix tree, kernels E to H: kernel D's fixed cost loses below ~3
-        chunks); every other MSM kernels C and D."""
+        """`engine/device.py:929 TpuEngine._msm_impl`.  Under impl 8 every
+        MSM takes the v8 route (`ec/msm8.py`, kernels I and E: no shifted
+        basis, nothing held across chunks but the bucket accumulators).
+        Under 5, 6 and 7 a basis whose chunks of 2^16 points hold more than
+        `msm_shift_max` points takes v8 as well; under 5 every other MSM
+        the small route (shifted basis + prefix tree, kernels E to H); under
+        6 and 7 one of at most `msm_small_chunks` chunks the small route
+        (the fixed cost of 2^15 to 2^16 bucket queries loses below ~3
+        chunks), every other MSM v6 (`ec/msm6.py`, kernels K, G and E)
+        under 6 and kernels C and D under 7."""
+        if self.msm_impl == "8":
+            return "v8"
         nch = -(-basis.length // msm5.CHUNK)
         if nch * msm5.CHUNK > self.msm_shift_max:
             return "v8"
-        return "small" if 0 < nch <= self.msm_small_chunks else "cd"
+        if self.msm_impl == "5" or 0 < nch <= self.msm_small_chunks:
+            return "small"
+        return "v6" if self.msm_impl == "6" else "cd"
 
     def _scalars(self, scalars) -> torch.Tensor:
         if isinstance(scalars, TVec):
@@ -334,15 +362,19 @@ class TorchEngine:
             return msm5.msm_batch(basis, [s])[0]
         if route == "v8":
             return msm8.msm(basis, s)
+        if route == "v6":
+            return msm6.msm(basis, s)
         return msm_mod.msm(basis, s)
 
     def msm_many(self, jobs: list) -> list:
         """`engine/device.py:993 TpuEngine.msm_many`: jobs over one CRS
         whose widest basis takes the small route run as batched MSMs of
         `msm_batch` jobs (a short group padded with empty MSMs, so every
-        batch has one width); everything else (the C + D and v8 routes)
-        one job at a time, each by its own basis's route.  Each job uses
-        its own basis's length; the batch runs over the widest."""
+        batch has one width); everything else (the C + D, v6 and v8
+        routes) one job at a time, each by its own basis's route (v6 has
+        no work to share across MSMs: `msm6.py:467-482` loops as well).
+        Each job uses its own basis's length; the batch runs over the
+        widest."""
         if len(jobs) <= 1:
             return [self.msm(b, s) for b, s in jobs]
         widest = max((b for b, _ in jobs), key=lambda b: b.length)

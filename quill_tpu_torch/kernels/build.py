@@ -37,6 +37,8 @@ LIBS = {
     "msm5": "msm5.cu",
     "msm8": "msm8.cu",
     "fixed_base": "fixed_base.cu",
+    "msm6": "msm6.cu",
+    "field": "field.cu",
 }
 HEADER = "bn254.cuh"
 HOST_SOURCE = "bn254_host.cpp"
@@ -63,6 +65,8 @@ LAUNCHES = {
     "msm5_tree_down": 0,     # kernel H
     "msm8_seg_scan": 0,      # kernel I
     "fixed_base": 0,         # kernel J
+    "msm6_level0": 0,        # kernel K
+    "field_mul": 0,          # kernel L
 }
 
 _LOADED: dict = {}

@@ -1,4 +1,4 @@
-"""Kernels A to J on the card against their plain twins, exactly.
+"""Kernels A to L on the card against their plain twins, exactly.
 
 These need an NVIDIA GPU with nvcc (they build the kernels from
 `quill_tpu_torch/csrc`) and skip elsewhere; whether a card is present is
@@ -153,3 +153,40 @@ def test_kernel_j_matches_plain(dev):
     g = curve.g1_generator()
     for k, p in zip(ints[-3:], ed.proj_to_jacobians(got[-3:])):
         assert p == g.scalar_mul(k)
+
+
+def test_kernel_k_matches_plain(dev):
+    """Kernel K on every level-1 pair of a v6 MSM (padded and clamped
+    elements make pairs of equal points), then the whole v6 MSM against
+    kernels C and D and the host."""
+    from quill_tpu_torch.ec import msm6
+
+    g = curve.g1_generator()
+    pts = [g.scalar_mul(k + 2).to_affine() for k in range(300)]
+    pts[11] = curve.Affine(curve.Fq(0), curve.Fq(0), infinity=True)
+    basis = M.load_basis(pts, dev)
+    ints = [RNG.randrange(R) for _ in range(300)]
+    ints[:3] = [0, 1, R - 1]
+    s = fd.from_ints(ints, fd.FR, dev)
+    sh = msm6.shifted(basis, 300).reshape(-1, 2, fd.NLIMB)
+    _, idx = msm6.sort_keys(fd.from_mont(s, fd.FR), basis.inf, 300)
+    before = build.LAUNCHES["msm6_level0"]
+    assert torch.equal(msm6.level0(sh, idx), msm6.level0_plain(sh, idx))
+    assert build.LAUNCHES["msm6_level0"] == before + 1
+    assert msm6.msm(basis, s) == M.msm(basis, s) == curve.msm_host(pts, ints)
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_kernel_l_matches_plain(dev, field):
+    from quill_tpu_torch.fields import vec
+
+    f = fd.FR if field == "fr" else fd.FQ
+    mod = f.modulus
+    xs = [RNG.randrange(mod) for _ in range(1000)] + [0, 1, mod - 1]
+    ys = [RNG.randrange(mod) for _ in range(1000)] + [mod - 1] * 3
+    a, b = fd.from_ints(xs, f, dev), fd.from_ints(ys, f, dev)
+    before = build.LAUNCHES["field_mul"]
+    got = vec.mont_mul_vec(a, b, f)
+    assert build.LAUNCHES["field_mul"] == before + 1
+    assert torch.equal(got, vec.mont_mul_vec_plain(a, b, f))
+    assert fd.to_ints(got, f) == [x * y % mod for x, y in zip(xs, ys)]

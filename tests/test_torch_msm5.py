@@ -3,8 +3,9 @@ plain twins on the CPU) against the JAX package.
 
 - digits equal `quill_tpu.ec.msm._extract_digits`;
 - the engine's route equals `TpuEngine._msm_impl` for 1 to 70 chunks,
-  under the default and other `msm_shift_max` bounds, and `msm_many`
-  batches small-route jobs in padded groups;
+  under every ported `msm_impl` (5, 6, 7, 8; 1 and 3 raise) and the
+  default and other `msm_shift_max` bounds, and `msm_many` batches
+  small-route jobs in padded groups;
 - shifted-basis rows equal 2^(13 w) G_i by `quill_tpu.ec.curve`;
 - the prefix tree's wiring: with integers in place of points it gives
   running sums (as `tests/test_msm_tree.py` checks the TPU tree);
@@ -109,6 +110,38 @@ def test_route_matches_device_engine(shift_max, monkeypatch):
         for length in (k * msm5.CHUNK - 5, k * msm5.CHUNK):
             got = eng.msm_route(types.SimpleNamespace(length=length))
             assert got == JAX_ROUTE[want], (k, length)
+
+
+IMPL_ROUTE = {"5": "small", "6": "v6", "7": "cd", "8": "v8"}
+
+
+@pytest.mark.parametrize("shift_max", [None, 0, 3 << 16])
+@pytest.mark.parametrize("impl", ["5", "6", "7", "8"])
+def test_impl_route_matches_device_engine(impl, shift_max, monkeypatch):
+    """`TorchEngine(msm_impl=...)` routes as `TpuEngine._msm_impl` does
+    under QUILL_MSM_IMPL: the default shift bound is 2^20 points under 6
+    and 7 and 2^21 under 5 and 8, and impl 8 takes v8 whatever the bound."""
+    from quill_tpu.engine.device import TpuEngine
+
+    monkeypatch.setenv("QUILL_MSM_IMPL", impl)
+    monkeypatch.delenv("QUILL_MSM_SMALL_CHUNKS", raising=False)
+    if shift_max is None:
+        monkeypatch.delenv("QUILL_MSM_SHIFT_MAX", raising=False)
+    else:
+        monkeypatch.setenv("QUILL_MSM_SHIFT_MAX", str(shift_max))
+    eng = TorchEngine("cpu", msm_impl=impl, msm_shift_max=shift_max)
+    for k in range(1, 71):
+        want = TpuEngine._msm_impl(types.SimpleNamespace(x_chunks=[0] * k))
+        for length in (k * msm5.CHUNK - 5, k * msm5.CHUNK):
+            got = eng.msm_route(types.SimpleNamespace(length=length))
+            assert got == IMPL_ROUTE[want], (k, length)
+            assert got in eng.msm_counts
+
+
+@pytest.mark.parametrize("impl", ["1", "3", "9"])
+def test_unported_impl_raises(impl):
+    with pytest.raises(ValueError, match="not ported"):
+        TorchEngine("cpu", msm_impl=impl)
 
 
 def test_msm_many_batches_in_padded_groups(basis, points, monkeypatch):
