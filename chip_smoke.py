@@ -633,12 +633,51 @@ def field_bench(card, records):
     return launches
 
 
+SCAN_PATTERNS = ("none", "all", "boundary", "last", "random8", "random64")
+
+
+def scan_flags(pattern: str, m: int, s: int, t: int, gen):
+    """(m, s) adversarial flags for kernel I on the card: none, all, at
+    every run boundary of its t threads a lane, only at the last step, or
+    random at 1/8 or 1/64."""
+    import torch
+
+    if pattern == "none":
+        return None
+    f = torch.zeros((m, s), dtype=torch.bool, device=gen.device)
+    if pattern == "all":
+        f[:] = True
+    elif pattern == "boundary":
+        f[:, ::-(-s // t)] = True
+    elif pattern == "last":
+        f[:, -1] = True
+    else:
+        den = int(pattern[len("random"):])
+        f = torch.rand((m, s), generator=gen, device=gen.device) < 1 / den
+    return f
+
+
+def scan_err(xs, flags=None) -> int:
+    """points_err of kernel I against its plain twin on (m, s) lanes.  The
+    kernel adds in another order, so its triples may differ from the
+    twin's; none may be the (0 : 0 : 0) that equals every point."""
+    from quill_tpu_torch.ec import msm8
+    from quill_tpu_torch.fields import device as fd
+
+    got = msm8.seg_scan(xs, flags).reshape(-1, 3, fd.NLIMB)
+    check(bool((got != 0).any(-1).any(-1).all()),
+          "kernel I wrote a (0 : 0 : 0) triple")
+    return points_err(got,
+                      msm8.seg_scan_plain(xs, flags).reshape(-1, 3, fd.NLIMB))
+
+
 def v8_kernels(kzg_big, records, card):
     """J on one CRS chunk of 2^16 tau powers; I on one v8 chunk's scans
     (2^16 uniform scalars: 20 windows x 256 lanes of 256 sorted entries,
     then the block totals, then the triangle's 20 x 32 lanes of 256
-    buckets); E's flagged mode on that chunk's collect; then a v8 MSM of
-    2^22 uniform scalars against kernels C and D."""
+    buckets), and at the chunk and block-scan shapes on every adversarial
+    flag pattern (SCAN_PATTERNS); E's flagged mode on that chunk's collect;
+    then a v8 MSM of 2^22 uniform scalars against kernels C and D."""
     import torch
 
     from quill_tpu_torch.ec import curve, msm5, msm8
@@ -687,8 +726,7 @@ def v8_kernels(kzg_big, records, card):
     sorted_d, xs, flags = msm8.chunk_entries(
         canon, bb.xy[:msm8.CHUNK], bb.inf[:msm8.CHUNK])
     m, steps = xs.shape[:2]
-    err_i = points_err(msm8.seg_scan(xs, flags).reshape(-1, 3, fd.NLIMB),
-                       msm8.seg_scan_plain(xs, flags).reshape(-1, 3, fd.NLIMB))
+    err_i = scan_err(xs, flags)
     times = dict(
         ms=cuda_ms(lambda: msm8.seg_scan(xs, flags)),
         plain_ms=cuda_ms(lambda: msm8.seg_scan_plain(xs, flags), reps=1))
@@ -696,9 +734,17 @@ def v8_kernels(kzg_big, records, card):
     nb = m // msm8.NWIN
     tot = ys[:, -1].reshape(msm8.NWIN, nb, 3, fd.NLIMB).contiguous()
     tot_f = wf[:, -1].reshape(msm8.NWIN, nb).contiguous()
-    err_i = max(err_i, points_err(
-        msm8.seg_scan(tot, tot_f).reshape(-1, 3, fd.NLIMB),
-        msm8.seg_scan_plain(tot, tot_f).reshape(-1, 3, fd.NLIMB)))
+    err_i = max(err_i, scan_err(tot, tot_f))
+    threads = dict(chunk=msm8.scan_threads(m, steps),
+                   block_scan=msm8.scan_threads(*tot.shape[:2]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    for lanes, name in ((xs, "chunk"), (tot, "block_scan")):
+        for pattern in SCAN_PATTERNS:
+            err = scan_err(lanes, scan_flags(pattern, *lanes.shape[:2],
+                                             threads[name], gen))
+            check(err == 0, f"kernel I disagrees with its plain twin at the "
+                  f"{name} shape, flags {pattern}")
     times["block_scan_ms"] = cuda_ms(lambda: msm8.seg_scan(tot, tot_f))
     times["block_scan_plain_ms"] = cuda_ms(
         lambda: msm8.seg_scan_plain(tot, tot_f), reps=1)
@@ -717,10 +763,9 @@ def v8_kernels(kzg_big, records, card):
                        ed.identity(msm8.NWIN * msm8.NBUCK, dev))
     rev = acc.reshape(msm8.NWIN, msm8.NBUCK, 3, fd.NLIMB).flip(1).reshape(
         -1, msm8.BS, 3, fd.NLIMB).contiguous()
-    err_i = max(err_i, points_err(
-        msm8.seg_scan(rev).reshape(-1, 3, fd.NLIMB),
-        msm8.seg_scan_plain(rev).reshape(-1, 3, fd.NLIMB)))
+    err_i = max(err_i, scan_err(rev))
     check(err_i == 0, "kernel I disagrees with its plain twin")
+    threads["triangle"] = msm8.scan_threads(*rev.shape[:2])
     times["triangle_scan_ms"] = cuda_ms(lambda: msm8.seg_scan(rev))
     times["triangle_scan_plain_ms"] = cuda_ms(
         lambda: msm8.seg_scan_plain(rev), reps=1)
@@ -730,6 +775,9 @@ def v8_kernels(kzg_big, records, card):
         f"{rev.shape[0]} x {msm8.BS}: {times['triangle_scan_ms']:.3f} ms; "
         f"kernel E flagged at the collect's {sel.shape[0]} entries: "
         f"{e_rec['v8_collect_ms']:.3f} ms")
+    log(f"kernel I threads a lane: {json.dumps(threads)}; equal points on "
+        f"flags {', '.join(SCAN_PATTERNS)} at the chunk and block-scan "
+        f"shapes")
     tri_lanes = rev.shape[0]
     del xs, flags, ys, wf, offs, acc, rev, a, b, f
 
@@ -756,7 +804,12 @@ def v8_kernels(kzg_big, records, card):
         **bound(card, 12 * m * steps, m * steps * (2 * PT + 1)),
         library_ms=None, **times,
         block_scan_shape=f"{tot.shape[0]} lanes x {nb} steps, flagged",
+        block_scan_bound_ms=bound(card, 12 * msm8.NWIN * nb,
+                                  msm8.NWIN * nb * (2 * PT + 1))["bound_ms"],
         triangle_scan_shape=f"{tri_lanes} lanes x {msm8.BS} steps",
+        triangle_scan_bound_ms=bound(card, 12 * tri_lanes * msm8.BS,
+                                     tri_lanes * msm8.BS * 2 * PT)["bound_ms"],
+        threads_per_lane=threads,
         v8_msm_s=v8_s, cd_msm_s=cd_s,
         msm_shape=f"{nbig} points, uniform scalars below 2^252"))
     return out

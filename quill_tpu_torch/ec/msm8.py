@@ -36,6 +36,8 @@ sorted sequence above reshapes into lanes without a transpose.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..fields import device as fd
@@ -55,12 +57,15 @@ BS = 256                   # scan steps per lane (entries per block)
 _FN = {}
 
 
-def _fn():
+def _fn(name="quill_seg_scan"):
     if not _FN:
-        _FN["i"] = build.bind(build.lib("msm8"), "quill_seg_scan",
-                              [build.VP, build.VP, build.I64, build.I64,
-                               build.VP, build.VP])
-    return _FN["i"]
+        lib = build.lib("msm8")
+        _FN["quill_seg_scan"] = build.bind(
+            lib, "quill_seg_scan",
+            [build.VP, build.VP, build.I64, build.I64, build.VP, build.VP])
+        _FN["quill_seg_scan_threads"] = build.bind(
+            lib, "quill_seg_scan_threads", [build.I64, build.I64, build.VP])
+    return _FN[name]
 
 
 # ---------------------------------------------------------------------------
@@ -90,6 +95,15 @@ def seg_scan(xs: torch.Tensor, flags: torch.Tensor | None = None):
     build.check(rc, "msm8_seg_scan")
     build.count("msm8_seg_scan")
     return ys
+
+
+def scan_threads(m: int, s: int) -> int:
+    """The threads kernel I gives each of m lanes of s steps on the current
+    card (`threads_per_lane` in `csrc/msm8.cu`)."""
+    t = ctypes.c_int(0)
+    build.check(_fn("quill_seg_scan_threads")(m, s, ctypes.byref(t)),
+                "msm8_seg_scan_threads")
+    return t.value
 
 
 def seg_scan_plain(xs: torch.Tensor, flags: torch.Tensor | None = None):

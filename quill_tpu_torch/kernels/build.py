@@ -29,7 +29,7 @@ CSRC = PKG / "csrc"
 NATIVE = PKG.parent / "native"
 BUILD_ROOT = PKG.parent / "build" / "quill_tpu_torch"
 
-# library -> CUDA source; every library also depends on the shared header
+# library -> CUDA source; every library also depends on the shared headers
 LIBS = {
     "sumcheck": "sumcheck_round.cu",
     "ntt": "ntt.cu",
@@ -40,7 +40,7 @@ LIBS = {
     "msm6": "msm6.cu",
     "field": "field.cu",
 }
-HEADER = "bn254.cuh"
+HEADERS = ["bn254.cuh", "seg_scan.cuh"]
 HOST_SOURCE = "bn254_host.cpp"
 # host library -> C source under native/
 NATIVE_LIBS = {
@@ -97,7 +97,7 @@ def _hash(files: list[Path], flags: list[str]) -> str:
 
 
 def build_dir() -> Path:
-    files = [CSRC / n for n in [HEADER, HOST_SOURCE] + sorted(LIBS.values())]
+    files = [CSRC / n for n in HEADERS + [HOST_SOURCE] + sorted(LIBS.values())]
     files += [NATIVE / n for n in sorted(NATIVE_LIBS.values())]
     return BUILD_ROOT / _hash(files, NVCC_FLAGS + GCC_FLAGS)
 

@@ -129,7 +129,7 @@ def test_kernel_i_matches_plain(dev, monkeypatch):
     xs = p[10:266].reshape(8, 32, 3, fd.NLIMB).contiguous()
     flags = torch.rand((8, 32), device=dev) < 0.3
     for f in (flags, None):
-        assert torch.equal(msm8.seg_scan(xs, f), msm8.seg_scan_plain(xs, f))
+        assert _same_points(msm8.seg_scan(xs, f), msm8.seg_scan_plain(xs, f))
     ints = [RNG.randrange(R) for _ in range(300)]
     ints[:3] = [0, 1, R - 1]
     s = fd.from_ints(ints, fd.FR, dev)
@@ -138,6 +138,59 @@ def test_kernel_i_matches_plain(dev, monkeypatch):
     got = msm8.msm(basis, s)
     assert build.LAUNCHES["msm8_seg_scan"] > before
     assert got == M.msm(basis, s) == curve.msm_host(pts, ints)
+
+
+def _same_points(a, b):
+    """Equal points, none of them the degenerate (0 : 0 : 0).  Kernel I adds
+    in another order than its serial twin, so its triples may differ."""
+    a, b = a.reshape(-1, 3, fd.NLIMB), b.reshape(-1, 3, fd.NLIMB)
+    return bool((a != 0).any(-1).any(-1).all()
+                and ed.points_equal(a, b).all())
+
+
+def _scan_flags(pattern, m, s, t, gen):
+    """(m, s) flags on the card: none, all, at every run boundary of t runs
+    a lane, only at the last step, or random at 1/8 or 1/64."""
+    dev = gen.device
+    if pattern == "none":
+        return None
+    f = torch.zeros((m, s), dtype=torch.bool, device=dev)
+    if pattern == "all":
+        f[:] = True
+    elif pattern == "boundary":
+        f[:, ::-(-s // t)] = True
+    elif pattern == "last":
+        f[:, -1] = True
+    else:
+        den = int(pattern[len("random"):])
+        f = torch.rand((m, s), generator=gen, device=dev) < 1 / den
+    return f
+
+
+@pytest.mark.parametrize("pattern", ["none", "all", "boundary", "last",
+                                     "random8", "random64"])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 7), (20, 256), (5120, 256)])
+def test_kernel_i_shapes(dev, shape, pattern):
+    """Kernel I at the v8 route's block-scan (20 x 256) and chunk (5,120 x
+    256) shapes and at two small ones, on adversarial flags, with
+    identities among the points."""
+    from quill_tpu_torch.ec import msm8
+
+    m, s = shape
+    g = curve.g1_generator()
+    pool = ed.jacobians_to_proj(
+        [g.scalar_mul(k + 2) for k in range(63)]
+        + [curve.Jacobian.identity(curve.Fq(1))]).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 1000 + s)
+    idx = torch.randint(0, 64, (m * s,), generator=gen, device=dev)
+    xs = pool[idx].reshape(m, s, 3, fd.NLIMB).contiguous()
+    t = msm8.scan_threads(m, s)
+    flags = _scan_flags(pattern, m, s, t, gen)
+    before = build.LAUNCHES["msm8_seg_scan"]
+    got = msm8.seg_scan(xs, flags)
+    assert build.LAUNCHES["msm8_seg_scan"] == before + 1
+    assert _same_points(got, msm8.seg_scan_plain(xs, flags))
 
 
 def test_kernel_j_matches_plain(dev):
