@@ -15,7 +15,7 @@ same bytes; the 2^20 pin below was fixed from such a run.
 
 Phases, any failure exits non-zero:
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: kernels A to L from quill_tpu_torch/csrc with nvcc (one process
+2. build: kernels A to M from quill_tpu_torch/csrc with nvcc (one process
    per source, all at once) and the host C libraries of native/ (G1
    arithmetic, BLAKE3) with gcc;
 3. CRS: the host CRS of 2^18 + 1 points (native host EC, the reference),
@@ -25,7 +25,9 @@ Phases, any failure exits non-zero:
 4. kernels: each kernel against its plain twin on the card, exactly, at
    the shapes the proves give it, with the times of the kernel wrappers
    and of the plain twins and the least time the card could take for the
-   same work; the 2^18-point MSMs also against the native host MSM; the
+   same work (kernel M at an open_many batch of each prove, 4 openings of
+   ~2^22 and 8 of ~2^18 coefficients; kernel E's v8 collect mode on one v8
+   chunk); the 2^18-point MSMs also against the native host MSM; the
    small-route MSM of 4 x 2^16 points, v6 MSMs of 2^18 and 2^20 points and
    a v8 MSM of 2^22 points against kernels C and D on the same scalars;
 5. field bench (`python -m quill_tpu_torch.bench_field`): kernel L's
@@ -39,10 +41,12 @@ Phases, any failure exits non-zero:
 8. main path, 2^20 rows, on the CRS of phase 3: preprocess -> prove ->
    serialize_proof -> verify; the proof must have the pinned length and
    sha256, and some MSMs must take v8.
-Each path prints its phases, its kernel launches and its MSMs by route;
+Each path prints its phases, its kernel launches, its MSMs by route and
+its host spans (`kzg/quotient` and `kzg/open_msm` on a line of their own);
 every kernel must have launched in the CRS build, the field bench or one
-of the paths.  The line before the last is the per-kernel JSON record, the
-last line the device record.
+of the paths, kernel M on the 2^16- and the 2^20-row paths, and the v8
+collect on the 2^20-row path.  The line before the last is the per-kernel
+JSON record, the last line the device record.
 """
 
 import argparse
@@ -69,6 +73,14 @@ CRS_SAMPLES = 64           # later CRS points checked by native EC
 # route's largest (a flat space of 2^24 leaves)
 V6_POINTS = (1 << 18, 1 << 20)
 FIELD_N = 1 << 18          # kernel L's products in the kernel phase
+# kernel M: an open_many batch of each prove (its quotients' inputs: two
+# tables of 2^k and two of 2^k - 1 coefficients, twice at 2^16 rows), and
+# the coefficients a thread it is also timed at
+QUOT_BATCHES = {
+    f"2^{BIG_LOG2_ROWS}-row": [1 << 22] * 2 + [(1 << 22) - 1] * 2,
+    f"2^{LOG2_ROWS}-row": ([1 << 18] * 2 + [(1 << 18) - 1] * 2) * 2,
+}
+QUOT_RUNS = (8, 16, 32, 64)
 
 
 # bound model (`bound`): the field products' 32-bit IMADs at the card's
@@ -313,8 +325,27 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
            shape="19 stages of one 2^19-point NTT (poly_mul 2^18 x 2^18)",
            max_abs_err=err, ms=cuda_ms(lambda: ntt.stages(xk, tw)),
            plain_ms=cuda_ms(lambda: ntt.stages(xp, tw, plain=True), reps=1))
-    log(f"kernel B: exact; {records[-1]['ms']:.3f} ms vs plain "
-        f"{records[-1]['plain_ms']:.3f} ms")
+    # the 2^20-row prove's largest product (2^22 x 2^22: transforms of
+    # 2^23 points), timed only: its plain twin would take minutes
+    nbig = 1 << (BIG_LOG2_ROWS + 3)
+    xb = uniform_scalars(nbig, dev, 77)
+    twb = ntt.twiddles(nbig, False, str(dev))
+    big_stages = nbig.bit_length() - 1
+    rec = records[-1]
+    rec.update(
+        ms_per_launch=rec["ms"] / stages,
+        bound_ms_per_launch=rec["bound_ms"] / stages,
+        big_shape=f"{big_stages} stages of one 2^{big_stages}-point NTT (the "
+                  f"2^{BIG_LOG2_ROWS}-row prove's largest product)",
+        big_ms=cuda_ms(lambda: ntt.stages(xb, twb)),
+        big_bound_ms=bound(card, big_stages * (nbig // 2),
+                           (2 * nbig + nbig // 2) * FE)["bound_ms"])
+    rec["big_ms_per_launch"] = rec["big_ms"] / big_stages
+    del xb, twb
+    log(f"kernel B: exact; {rec['ms']:.3f} ms vs plain {rec['plain_ms']:.3f}"
+        f" ms ({rec['ms_per_launch']:.4f} ms a launch); {rec['big_shape']}:"
+        f" {rec['big_ms']:.3f} ms ({rec['big_ms_per_launch']:.4f} ms a "
+        f"launch, bound {rec['big_bound_ms'] / big_stages:.4f})")
 
     # C and D: MSMs of 2^18 points on the tau CRS, with uniform scalars
     # (witness and quotient commitments) and with the identity column's
@@ -497,7 +528,8 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
         rec["cd_same_4_msms_ms"] = cd_ms
     records += v6_kernels(kzg, kzg_big, card)
     records.append(field_kernel(dev, rng, card))
-    records += v8_kernels(kzg_big, records, card)
+    records.append(quotient_kernel(dev, rng, card))
+    records += v8_kernels(kzg_big, card)
     return records
 
 
@@ -598,6 +630,59 @@ def field_kernel(dev, rng, card):
         fq_ms=out["fq"][1], fq_plain_ms=out["fq"][2])
 
 
+def quotient_kernel(dev, rng, card):
+    """Kernel M against its plain twin at open_many batches the proves give
+    it (`chip_smoke.py` logs every path's batches): QUOT_BATCHES, uniform
+    coefficients and points; the 2^20-row prove's batch also at every run
+    length of QUOT_RUNS."""
+    from quill_tpu_torch.engine import quotient as Q
+    from quill_tpu_torch.fields.bn254 import R
+
+    res = {}
+    for tag, lengths in QUOT_BATCHES.items():
+        cs = [uniform_scalars(n, dev, 4000 + 16 * n.bit_length() + j)
+              for j, n in enumerate(lengths)]
+        xs = [rng.randrange(1, R) for _ in lengths[1:]] + [R - 7]
+        ys, qs = Q.scan(cs, xs)
+        pys, pqs = Q.scan_plain(cs, xs)
+        err = max([max_abs_err(ys, pys)]
+                  + [tensor_err(a, b) for a, b in zip(qs, pqs)])
+        check(err == 0, f"kernel M disagrees with its plain twin at {tag}")
+        del qs, pqs
+        # the function's least work: Ruffini's recurrence q_{k-1} = c_k +
+        # x q_k scanned in runs takes 2 products a coefficient (the run's
+        # serial pass, and carry x^j stepped in the fix-up), c read once and
+        # q written once; kernel M's formula does 4 and moves 128 bytes
+        total = sum(lengths)
+        res[tag] = dict(
+            shape=f"{len(lengths)} openings of {lengths[0]} or "
+                  f"{lengths[0] - 1} coefficients (an open_many batch of the "
+                  f"{tag} prove)",
+            err=err, ms=cuda_ms(lambda: Q.scan(cs, xs)),
+            plain_ms=cuda_ms(lambda: Q.scan_plain(cs, xs), reps=1),
+            **bound(card, 2 * total, 2 * FE * total))
+        if tag == f"2^{BIG_LOG2_ROWS}-row":
+            res["by_run"] = {r: cuda_ms(lambda r=r: Q.scan(cs, xs, r))
+                             for r in QUOT_RUNS}
+        log(f"kernel M, {res[tag]['shape']}: {res[tag]['ms']:.3f} ms vs "
+            f"plain {res[tag]['plain_ms']:.3f} ms (bound "
+            f"{res[tag]['bound_ms']:.3f} ms)")
+        del cs
+    log(f"kernel M by coefficients a thread: {json.dumps(res['by_run'])}")
+    big, small = res[f"2^{BIG_LOG2_ROWS}-row"], res[f"2^{LOG2_ROWS}-row"]
+    return dict(
+        name="quotient", route="cuda",
+        source="quill_tpu_torch/csrc/quotient.cu",
+        replaces="quill_tpu/engine/quotient.py:127 (quotient_many_device, "
+                 "XLA in the TPU build)",
+        shape=big["shape"], max_abs_err=max(big["err"], small["err"]),
+        ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+        bound_by=big["bound_by"], library_ms=None,
+        small_shape=small["shape"], small_ms=small["ms"],
+        small_plain_ms=small["plain_ms"], small_bound_ms=small["bound_ms"],
+        run=Q.RUN, ms_by_run=res["by_run"])
+
+
 def field_bench(card, records):
     """The field bench (`quill_tpu_torch/bench_field.py`): exactness, then
     the chained rates of kernels L and E, added to their records.  -> its
@@ -671,16 +756,17 @@ def scan_err(xs, flags=None) -> int:
                       msm8.seg_scan_plain(xs, flags).reshape(-1, 3, fd.NLIMB))
 
 
-def v8_kernels(kzg_big, records, card):
+def v8_kernels(kzg_big, card):
     """J on one CRS chunk of 2^16 tau powers; I on one v8 chunk's scans
     (2^16 uniform scalars: 20 windows x 256 lanes of 256 sorted entries,
     then the block totals, then the triangle's 20 x 32 lanes of 256
     buckets), and at the chunk and block-scan shapes on every adversarial
-    flag pattern (SCAN_PATTERNS); E's flagged mode on that chunk's collect;
-    then a v8 MSM of 2^22 uniform scalars against kernels C and D."""
+    flag pattern (SCAN_PATTERNS); kernel E's v8 collect mode on that
+    chunk, into accumulators that already hold one chunk's buckets; then a
+    v8 MSM of 2^22 uniform scalars against kernels C and D."""
     import torch
 
-    from quill_tpu_torch.ec import curve, msm5, msm8
+    from quill_tpu_torch.ec import curve, msm8
     from quill_tpu_torch.ec import device as ed
     from quill_tpu_torch.ec import fixed_base as fb
     from quill_tpu_torch.ec import msm as M
@@ -748,19 +834,39 @@ def v8_kernels(kzg_big, records, card):
     times["block_scan_ms"] = cuda_ms(lambda: msm8.seg_scan(tot, tot_f))
     times["block_scan_plain_ms"] = cuda_ms(
         lambda: msm8.seg_scan_plain(tot, tot_f), reps=1)
-    sel, a, b, f = msm8.collect_terms(sorted_d, ys, wf, offs)
-    err_e = points_err(msm5.pt_add(a, b, f), msm5.pt_add_plain(a, b, f))
-    check(err_e == 0, "kernel E (flagged, v8 collect) disagrees with its "
-          "plain twin")
-    e_rec = next(r for r in records if r["name"] == "msm5_pt_add")
-    e_rec.update(
-        v8_collect_shape=f"{sel.shape[0]} flagged combines (one v8 chunk's "
-                         f"collect, 2^16 uniform scalars)",
-        v8_collect_ms=cuda_ms(lambda: msm5.pt_add(a, b, f)),
-        v8_collect_plain_ms=cuda_ms(lambda: msm5.pt_add_plain(a, b, f),
-                                    reps=1))
     acc = msm8.collect(sorted_d, ys, wf, offs,
                        ed.identity(msm8.NWIN * msm8.NBUCK, dev))
+    got = msm8.collect(sorted_d, ys, wf, offs, acc.clone())
+    want = msm8.collect_plain(sorted_d, ys, wf, offs, acc.clone())
+    check(torch.equal(got, want), "kernel E's v8 collect gives other "
+          "triples than its plain twin")
+    err_c = points_err(got, want)
+    # this chunk's work: the last position of each digit's run adds its
+    # scan value (plus its block offset where unflagged) into its bucket
+    nwin, npad = sorted_d.shape
+    last = torch.ones_like(sorted_d, dtype=torch.bool)
+    last[:, :-1] = sorted_d[:, :-1] != sorted_d[:, 1:]
+    act = last & (sorted_d > 0)
+    active = int(act.sum())
+    unflagged = int((act & ~wf.reshape(nwin, npad)).sum())
+    scratch = acc.clone()
+    out.append(dict(
+        name="msm8_collect", route="cuda",
+        source="quill_tpu_torch/csrc/msm8.cu",
+        replaces="quill_tpu/fields/pallas8.py:475 (_stacked_combine_kernel, "
+                 "flagged and plain) at quill_tpu/ec/msm8.py:193 "
+                 "(_k_collect8)",
+        shape=f"one v8 chunk's collect: {nwin} x {msm8.NBUCK - 1} buckets, "
+              f"{active} active, {unflagged} of them unflagged (2^16 "
+              f"uniform scalars)",
+        max_abs_err=err_c,
+        ms=cuda_ms(lambda: msm8.collect(sorted_d, ys, wf, offs, scratch)),
+        plain_ms=cuda_ms(lambda: msm8.collect_plain(sorted_d, ys, wf, offs,
+                                                    scratch), reps=1),
+        **bound(card, 12 * (active + unflagged),
+                nwin * npad * 4 + active * (3 * PT + 1) + unflagged * PT),
+        library_ms=None))
+    del scratch, got, want
     rev = acc.reshape(msm8.NWIN, msm8.NBUCK, 3, fd.NLIMB).flip(1).reshape(
         -1, msm8.BS, 3, fd.NLIMB).contiguous()
     err_i = max(err_i, scan_err(rev))
@@ -773,13 +879,13 @@ def v8_kernels(kzg_big, records, card):
         f"plain {times['plain_ms']:.3f} ms; block scan {tot.shape[0]} x "
         f"{nb}: {times['block_scan_ms']:.3f} ms; triangle scan "
         f"{rev.shape[0]} x {msm8.BS}: {times['triangle_scan_ms']:.3f} ms; "
-        f"kernel E flagged at the collect's {sel.shape[0]} entries: "
-        f"{e_rec['v8_collect_ms']:.3f} ms")
+        f"kernel E's v8 collect ({active} buckets): {out[-1]['ms']:.3f} ms "
+        f"vs plain {out[-1]['plain_ms']:.3f} ms")
     log(f"kernel I threads a lane: {json.dumps(threads)}; equal points on "
         f"flags {', '.join(SCAN_PATTERNS)} at the chunk and block-scan "
         f"shapes")
     tri_lanes = rev.shape[0]
-    del xs, flags, ys, wf, offs, acc, rev, a, b, f
+    del xs, flags, ys, wf, offs, acc, rev
 
     torch.cuda.synchronize()
     t0 = time.time()
@@ -910,8 +1016,9 @@ def crs_phase(engine, host_kzg, rng):
 
 
 def prove_path(engine, circuit, witness, make_kzg, tag: str):
-    """One main path with the launch counts and MSM routes of its run
-    alone: make_kzg() -> preprocess -> prove -> serialize -> verify."""
+    """One main path with the launch counts, MSM routes and kernel M's
+    batch shapes of its run alone: make_kzg() -> preprocess -> prove ->
+    serialize -> verify."""
     import torch
 
     from quill_tpu_torch.kernels import build
@@ -926,6 +1033,7 @@ def prove_path(engine, circuit, witness, make_kzg, tag: str):
     torch.cuda.reset_peak_memory_stats()
     build.reset_counts()
     engine.msm_counts = dict.fromkeys(engine.msm_counts, 0)
+    engine.quotient_batches = {}
     metrics.reset()
     t0 = time.time()
     pcs = MultilinearPCS(make_kzg())
@@ -951,8 +1059,16 @@ def prove_path(engine, circuit, witness, make_kzg, tag: str):
     log(f"{tag} phases: " + json.dumps(phases))
     log(f"{tag} launches: " + json.dumps(launches))
     log(f"{tag} MSMs by route (preprocess + prove): " + json.dumps(routes))
-    top = sorted(metrics.report().items(), key=lambda kv: -kv[1]["total_sec"])
+    batches = {" + ".join(f"2^{n.bit_length() - 1}" if n & (n - 1) == 0
+                          else str(n) for n in key): count
+               for key, count in engine.quotient_batches.items()}
+    log(f"{tag} kernel M batches (coefficients a job: count): "
+        + json.dumps(batches))
+    spans = metrics.report()
+    top = sorted(spans.items(), key=lambda kv: -kv[1]["total_sec"])
     log(f"{tag} host spans (utils/profiling): " + json.dumps(dict(top[:14])))
+    log(f"{tag} kzg spans: " + json.dumps(
+        {k: spans.get(k) for k in ("kzg/quotient", "kzg/open_msm")}))
     return dict(data=data, digest=digest, launches=launches, routes=routes,
                 hp=hp, pcs=pcs)
 
@@ -1002,6 +1118,8 @@ def main():
           and small["digest"] == PINNED_SHA256,
           "the 2^16-row proof differs from the pinned proof")
     check(small["routes"]["v8"] == 0, "an MSM of the 2^16-row prove took v8")
+    check(small["launches"]["quotient"] > 0,
+          "kernel M never launched on the 2^16-row path")
     if args.profile:
         profile_prove(small["hp"], witness)
     small_launches = small["launches"]
@@ -1027,6 +1145,9 @@ def main():
     big = prove_path(engine, circuit, witness, lambda: kzg_big,
                      f"2^{BIG_LOG2_ROWS}-row")
     check(big["routes"]["v8"] > 0, "no MSM of the 2^20-row prove took v8")
+    check(big["launches"]["quotient"] > 0
+          and big["launches"]["msm8_collect"] > 0,
+          "kernel M or the v8 collect never launched on the 2^20-row path")
     if args.cross_check:
         shift_max = engine.msm_shift_max
         engine.msm_shift_max = 1 << 40

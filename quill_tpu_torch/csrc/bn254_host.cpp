@@ -6,8 +6,10 @@
 // Build: g++ -x c++ -std=c++17 -O2 -shared -fPIC -o libbn254_host.so
 //        bn254_host.cpp
 #include <memory>
+#include <vector>
 
 #include "bn254.cuh"
+#include "quotient.cuh"
 #include "seg_scan.cuh"
 
 using namespace bn254;
@@ -125,6 +127,43 @@ void q_seg_scan_blocked(const uint32_t* xs, const uint8_t* flags, long m,
       block_fixup(i, off.get(), lo.get(), carry.get(), (int)nb, (int)T,
                   lane0, s, ys);
   }
+}
+
+// Kernel M (csrc/quotient.cu) emulated for one job: tiles of blk runs of r
+// coefficients, each run through phase 1 of quotient.cuh, the block's run
+// totals turned into carries and the tile's total in thread order, then the
+// tiles' carries (phase 2) and phase 3 on every run.  c, out: (n, 8); tab,
+// itab: QUOT_LOG rows of x^(2^i) and x^-(2^i); y: 8 words, p(x) Montgomery.
+void q_quotient_blocked(const uint32_t* c, long n, const uint32_t* tab,
+                        const uint32_t* itab, long blk, long r, uint32_t* out,
+                        uint32_t* y) {
+  const long tile = blk * r, nt = (n + tile - 1) / tile;
+  std::vector<Fe> runc(nt * blk), tilet(nt);
+  for (long g = 0; g < nt; ++g) {
+    Fe sum = fe_zero<FrM>();
+    for (long t = 0; t < blk; ++t) {
+      const long lo = g * tile + t * r < n ? g * tile + t * r : n;
+      const long hi = lo + r < n ? lo + r : n;
+      runc[g * blk + t] = sum;
+      if (lo < hi) sum = fe_add<FrM>(sum, qt_run_scan(c, tab, lo, hi, out));
+    }
+    tilet[g] = sum;
+  }
+  Fe carry = fe_zero<FrM>();
+  for (long g = 0; g < nt; ++g) {
+    const Fe v = tilet[g];
+    tilet[g] = carry;
+    carry = fe_add<FrM>(carry, v);
+  }
+  fe_store(y, carry);
+  for (long g = 0; g < nt; ++g)
+    for (long t = 0; t < blk; ++t) {
+      const long lo = g * tile + t * r < n ? g * tile + t * r : n;
+      const long hi = lo + r < n ? lo + r : n;
+      if (lo < hi)
+        qt_run_finish(out, itab, lo, hi,
+                      fe_add<FrM>(tilet[g], runc[g * blk + t]), carry);
+    }
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // Kernel I: the segmented point scan of the v8 MSM route,
-// quill_tpu_torch/ec/msm8.py.
+// quill_tpu_torch/ec/msm8.py, and kernel E's v8 collect mode (below).
 //
 // I  seg_scan  replaces quill_tpu/fields/pallas8.py:379 _seg_scan_kernel
 //              (seg_scan): for every lane independently, along its steps,
@@ -58,6 +58,11 @@ using namespace bn254;
 #define SCAN_THREADS SCAN_BLOCK
 #define SCAN_MIN_BLOCKS 3  // at most 65,536 / (128 x 3) = 170 registers
 #define FULL_MASK 0xffffffffu
+// The collect's block and __launch_bounds__ minimum: 256 x 2 holds it at 128
+// registers with no spills (142 unbounded), the fastest of the block sizes
+// timed on the H100 (PERF.md).
+#define COLLECT_THREADS 256
+#define COLLECT_MIN_BLOCKS 2
 
 __device__ __forceinline__ G1P g1_shfl_up(const G1P& a, unsigned d,
                                           int width) {
@@ -186,6 +191,46 @@ seg_scan_kernel(const uint32_t* __restrict__ xs,
     block_fixup(i, coff, cfirst, csum, SCAN_THREADS, T, lane0, s, ys);
 }
 
+// Kernel E's v8 collect mode (`ec/msm8.py: collect`), which replaces its
+// flagged and plain elementwise modes at the v8 collect (`msm8.py:193-220
+// _k_collect8` in the TPU build: one dense pass over every bucket of every
+// window).  One thread a (window w, digit d), d in 1 .. nbuck - 1: a binary
+// search in the window's sorted digits (2^16 int32, resident in L2) finds
+// the digit's last position; an absent digit writes nothing.  Otherwise
+// v = wf ? ys : offs[block] + ys, and acc[w, d] = acc[w, d] + v in place, the
+// two adds in the order the earlier path's two launches took them, so the
+// triples are the same.  No compaction (the earlier path's torch.nonzero
+// synchronised with the host every chunk) and no point tensor between the
+// operands and acc.  Bound on this card: integer multiply throughput, 12
+// products a bucket that occurs and 12 more where its digit's run starts
+// inside its block (one v8 chunk of uniform scalars: ~155,600 and ~4,300),
+// against ~5 MB of digits and ~200 bytes a bucket.
+__global__ void __launch_bounds__(COLLECT_THREADS, COLLECT_MIN_BLOCKS)
+v8_collect_kernel(const int32_t* __restrict__ sorted_d, int nwin,
+                  long long npad, int nbuck, int bs,
+                  const uint32_t* __restrict__ ys,
+                  const uint8_t* __restrict__ wf,
+                  const uint32_t* __restrict__ offs,
+                  uint32_t* __restrict__ acc) {
+  const long long i = (long long)blockIdx.x * COLLECT_THREADS + threadIdx.x;
+  if (i >= (long long)nwin * (nbuck - 1)) return;
+  const int w = (int)(i / (nbuck - 1));
+  const int d = (int)(i % (nbuck - 1)) + 1;
+  const int32_t* row = sorted_d + w * npad;
+  long long a = 0, b = npad;  // -> the first position whose digit exceeds d
+  while (a < b) {
+    const long long mid = (a + b) >> 1;
+    if (row[mid] <= d) a = mid + 1;
+    else b = mid;
+  }
+  if (a == 0 || row[a - 1] != d) return;
+  const long long idx = w * npad + a - 1;
+  G1P v = g1_load(ys + 24 * idx);
+  if (!wf[idx]) v = g1_add(g1_load(offs + 24 * (idx / bs)), v);
+  uint32_t* dst = acc + 24 * ((long long)w * nbuck + d);
+  g1_store(dst, g1_add(g1_load(dst), v));
+}
+
 static int g_wave = 0;  // threads in one full wave of the card
 
 static cudaError_t wave_threads(int* wave) {
@@ -232,5 +277,23 @@ extern "C" int quill_seg_scan(const void* xs, const void* flags, long long m,
   seg_scan_kernel<<<blocks, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)xs, (const uint8_t*)flags, m, s, T, (s + T - 1) / T,
       (uint32_t*)ys);
+  return (int)cudaGetLastError();
+}
+
+// sorted_d: (nwin, npad) int32, each row sorted; ys: (nwin * npad, 24) and
+// wf: (nwin * npad) bytes, the chunk's within-block scans and flag prefixes;
+// offs: (nwin * npad / bs, 24) block offsets; acc: (nwin * nbuck, 24), added
+// into in place.
+extern "C" int quill_v8_collect(const void* sorted_d, int nwin,
+                                long long npad, int nbuck, int bs,
+                                const void* ys, const void* wf,
+                                const void* offs, void* acc, void* stream) {
+  const long long n = (long long)nwin * (nbuck - 1);
+  if (n <= 0 || npad <= 0) return 0;
+  if (bs <= 0 || npad % bs != 0) return (int)cudaErrorInvalidValue;
+  v8_collect_kernel<<<(unsigned)((n + COLLECT_THREADS - 1) / COLLECT_THREADS),
+                      COLLECT_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)sorted_d, nwin, npad, nbuck, bs, (const uint32_t*)ys,
+      (const uint8_t*)wf, (const uint32_t*)offs, (uint32_t*)acc);
   return (int)cudaGetLastError();
 }

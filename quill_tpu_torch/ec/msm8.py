@@ -1,6 +1,7 @@
 """The v8 MSM route: per-window bucket sums by segmented scans, kernel I
-(`csrc/msm8.cu`) and its plain PyTorch twin, with kernel E
-(`csrc/msm5.cu`) for the elementwise combines.
+(`csrc/msm8.cu`), kernel E's v8 collect mode (the same source) and their
+plain PyTorch twins, with kernel E (`csrc/msm5.cu`) for the triangle's
+elementwise adds.
 
 Counterpart of `quill_tpu/ec/msm8.py`, the route the JAX engine takes for
 bases above 2^20 points (`TorchEngine.msm_route`).  It holds no shifted
@@ -19,10 +20,11 @@ accumulators.  Per chunk:
    block holds a flag), which shifted by one block are the block offsets;
 3. collect (`msm8.py:193-220`): the last position of each digit in each
    window, its within-block scan value combined with its block offset
-   unless a segment started inside the block before it (kernel E's
-   flagged mode: flag ? b : a + b); kernel E adds these values into the
-   accumulators of the digits that occur (up to 20 x 8191; the JAX
-   package adds the identity for the others).
+   unless a segment started inside the block before it (flag ? b : a + b),
+   added into the accumulator of the digit; kernel E's v8 collect mode does
+   both adds in one launch, one thread a (window, digit), and leaves the
+   buckets of absent digits as they are (the JAX package adds the identity
+   to them).
 
 Then the triangle (`msm8.py:246-286`), sum_k k B_k per window from two
 unsegmented kernel I scans over the reversed buckets (see `triangle`),
@@ -65,6 +67,10 @@ def _fn(name="quill_seg_scan"):
             [build.VP, build.VP, build.I64, build.I64, build.VP, build.VP])
         _FN["quill_seg_scan_threads"] = build.bind(
             lib, "quill_seg_scan_threads", [build.I64, build.I64, build.VP])
+        _FN["quill_v8_collect"] = build.bind(
+            lib, "quill_v8_collect",
+            [build.VP, build.I32, build.I64, build.I32, build.I32, build.VP,
+             build.VP, build.VP, build.VP, build.VP])
     return _FN[name]
 
 
@@ -127,13 +133,13 @@ def seg_scan_plain(xs: torch.Tensor, flags: torch.Tensor | None = None):
 
 def chunk_entries(scs: torch.Tensor, xy: torch.Tensor, inf: torch.Tensor):
     """(n, 8) canonical scalars against a chunk's (n, 2, 8) affine points
-    and (n,) infinity mask -> (sorted digits (NWIN, npad), scan input
+    and (n,) infinity mask -> (sorted int32 digits (NWIN, npad), scan input
     (NWIN * nb, BS, 3, 8), flags (NWIN * nb, BS)), npad = nb * BS the
     chunk padded with digit-0 entries."""
     n = scs.shape[0]
     dev = scs.device
     nb = -(-n // BS)
-    d = msm5.window_digits(scs).T.contiguous()
+    d = msm5.window_digits(scs).T.to(torch.int32).contiguous()
     if nb * BS > n:
         d = torch.cat((d, d.new_zeros((NWIN, nb * BS - n))), 1)
     sorted_d, perm = torch.sort(d, dim=1, stable=True)
@@ -165,32 +171,54 @@ def chunk_scan(xs: torch.Tensor, flags: torch.Tensor):
 
 
 def collect(sorted_d, ys, wf, offs, acc):
-    """Each window's bucket totals from the chunk's scans, added into the
-    (NWIN * NBUCK, 3, 8) accumulators in place.  Only the buckets whose
-    digit occurs in the chunk take part (the others would add the
-    identity), and never bucket 0."""
-    sel, a, b, f = collect_terms(sorted_d, ys, wf, offs)
-    acc[sel] = msm5.pt_add(acc[sel], msm5.pt_add(a, b, f))
+    """Kernel E's v8 collect mode (`csrc/msm8.cu`): each window's bucket
+    totals from the chunk's scans (`chunk_entries`' int32 sorted digits,
+    `chunk_scan`'s outputs) added into the (NWIN * NBUCK, 3, 8)
+    accumulators in place, one thread a (window, digit) for digits 1 to
+    8191; a digit absent from the chunk leaves its bucket as it is.  One
+    launch, no host synchronisation."""
+    if not acc.is_cuda:
+        return collect_plain(sorted_d, ys, wf, offs, acc)
+    nwin, npad = sorted_d.shape
+    for t, dt in ((sorted_d, torch.int32), (ys, torch.int32),
+                  (wf, torch.bool), (offs, torch.int32), (acc, torch.int32)):
+        if not (t.is_cuda and t.dtype == dt and t.is_contiguous()):
+            raise ValueError("collect takes contiguous CUDA tensors: int32 "
+                             "digits and points, bool flags")
+    if not (npad % BS == 0 and ys.numel() == nwin * npad * 24
+            and wf.numel() == nwin * npad
+            and offs.numel() == nwin * npad // BS * 24
+            and acc.shape == (nwin * NBUCK, 3, fd.NLIMB)):
+        raise ValueError("collect: operand shapes do not match the digits")
+    rc = _fn("quill_v8_collect")(
+        sorted_d.data_ptr(), nwin, npad, NBUCK, BS, ys.data_ptr(),
+        wf.data_ptr(), offs.data_ptr(), acc.data_ptr(), build.stream_ptr())
+    build.check(rc, "msm8_collect")
+    build.count("msm8_collect")
     return acc
 
 
-def collect_terms(sorted_d, ys, wf, offs):
-    """-> (accumulator rows w * NBUCK + digit, block offsets, scan values,
-    within-block flag prefixes) of the digits that occur in the chunk:
-    the operands of kernel E's flagged mode."""
+def collect_plain(sorted_d, ys, wf, offs, acc):
+    """The plain twin, dense over the chunk's sorted positions: the last
+    position of each digit's run (digit > 0) adds into its bucket, every
+    other position into a scratch row past the accumulators, so nothing is
+    compacted and nothing waits for the host.  The adds in the kernel's
+    order, acc + (flag ? ys : offs + ys).  (Dense over the 20 x 8192
+    buckets instead, a CPU run would pay 2 x 163,840 adds a chunk whatever
+    its size.)"""
+    nwin, npad = sorted_d.shape
     dev = sorted_d.device
-    npad = sorted_d.shape[1]
-    q = torch.arange(NBUCK, device=dev).expand(NWIN, NBUCK).contiguous()
-    pos = torch.searchsorted(sorted_d, q, right=True) - 1
-    pc = pos.clamp(min=0)
-    occurs = (pos >= 0) & (sorted_d.gather(1, pc) == q) & (q > 0)
-    sel = torch.nonzero(occurs.reshape(-1)).flatten()
-    win = sel // NBUCK
-    last = pc.reshape(-1)[sel]
-    idx = win * npad + last
-    lane = win * (npad // BS) + last // BS
-    return (sel, offs[lane], ys.reshape(-1, 3, fd.NLIMB)[idx],
-            wf.reshape(-1)[idx])
+    last = torch.ones_like(sorted_d, dtype=torch.bool)
+    last[:, :-1] = sorted_d[:, :-1] != sorted_d[:, 1:]
+    win = torch.arange(nwin, device=dev)[:, None]
+    tgt = torch.where(last & (sorted_d > 0), win * NBUCK + sorted_d,
+                      nwin * NBUCK).reshape(-1)
+    v = msm5.pt_add_plain(offs.repeat_interleave(BS, 0),
+                          ys.reshape(-1, 3, fd.NLIMB), wf.reshape(-1))
+    ext = torch.cat((acc, ed.identity(1, dev)))
+    ext[tgt] = msm5.pt_add_plain(ext[tgt], v)
+    acc.copy_(ext[:-1])
+    return acc
 
 
 # ---------------------------------------------------------------------------

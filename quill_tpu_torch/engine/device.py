@@ -6,15 +6,15 @@ own copy of the JAX package's host modules; this class is what it runs on.
 
 - A device vector (`TVec`) is an `(n, 8)` int32 tensor of Fr elements in
   Montgomery form (`fields/device.py`) plus a logical length; rows past the
-  length are zero.  It has no `.chunks` attribute, so `pcs/kzg.py` sends
-  its quotients through `quotient_by_linear` (and never imports the JAX
-  batched quotient path).
+  length are zero.  `pcs/kzg.py` sends a batch's device vectors with
+  x != 0 through `engine/quotient.py` (kernel M), grouped by their count of
+  2^16-element chunks as the JAX copy groups its DVecs.
 - Vectors shorter than `min_device_size` stay `HostEngine` object arrays,
   as `engine/device.py:418-422` keeps sub-chunk vectors on the host.  The
   handoff is by size only.
-- Elementwise ops, scans, `eq_table`, `eval_expr`, `batch_inverse` and
-  `quotient_by_linear` are plain torch ops; the sumcheck rounds, the NTT
-  products and the MSMs run the hand-written kernels: A and B; C and D,
+- Elementwise ops, `eq_table`, `eval_expr` and `batch_inverse` are plain
+  torch ops; the sumcheck rounds, the NTT products, the quotients and the
+  MSMs run the hand-written kernels: A, B and M; C and D,
   E to H on the small-MSM route, K, G and E on the v6 route, I and E on the
   v8 route (`msm_route`, chosen by `msm_impl` as `QUILL_MSM_IMPL` chooses
   in the JAX engine).
@@ -29,7 +29,6 @@ from ..ec import msm5, msm6, msm8
 from ..fields import device as fd
 from ..fields.bn254 import R
 from ..fields.device import FR
-from ..fields.scalar import inv
 from ..poly import ntt
 from . import sumcheck
 from .expr import compile_expr, const_tensor, eval_program_w
@@ -86,6 +85,9 @@ class TorchEngine:
         self.msm_counts = dict.fromkeys(MSM_ROUTES[self.msm_impl], 0)
         if "small" in self.msm_counts:
             self.msm_counts["small_batches"] = 0
+        # kernel M's batches (`engine/quotient.py`): the openings' lengths
+        # -> batches of those lengths
+        self.quotient_batches: dict = {}
         self.host = HostEngine()
 
     # -- representation -------------------------------------------------------
@@ -284,24 +286,19 @@ class TorchEngine:
         return self._wrap(prod, la + lb - 1)
 
     def quotient_by_linear(self, coeffs, x: int):
-        """(y, q) with y = p(x), q = (p - y) / (X - x): with
-        P_j = sum_{t <= j} c_t x^t (a prefix sum), q_j = (y - P_j) x^-(j+1)
-        and y = P_{n-1}.  x = 0 is a shift."""
+        """(y, q) with y = p(x), q = (p - y) / (X - x), n - 1 coefficients:
+        x = 0 is a shift; a device vector otherwise takes kernel M as a
+        batch of one (`engine/quotient.py`)."""
         if not self._dev(coeffs):
             return self.host.quotient_by_linear(coeffs, x)
-        n = coeffs.length
-        c = coeffs.rows()
         x = x % R
         if x == 0:
+            c = coeffs.rows()
             y = FR.unmont(fd.tensor_to_ints(c[:1])[0])
             return y, self._wrap(c[1:].clone())
-        w = fd.mul(c, fd.powers(x, n, FR, self.device), FR)
-        pre = prefix_sum(w)
-        y = FR.unmont(fd.tensor_to_ints(pre[n - 1:n])[0])
-        xinv_pows = fd.powers(inv(x, R), n + 1, FR, self.device)[1:n]
-        diff = fd.sub(fd.const(y, FR, self.device).expand(n - 1, fd.NLIMB),
-                      pre[:n - 1], FR)
-        return y, self._wrap(fd.mul(diff, xinv_pows, FR))
+        from .quotient import quotient_many_device
+
+        return quotient_many_device(self, [(coeffs, x)])[0]
 
     def s_polynomial(self, p1, p2):
         """IPA S polynomial with ONE product (`engine/device.py:864-885`):
@@ -393,20 +390,3 @@ class TorchEngine:
             self.msm_counts["small_batches"] += 1
             out.extend(msm5.msm_batch(widest, part)[:real])
         return out
-
-
-# ---------------------------------------------------------------------------
-# plain-torch scans
-# ---------------------------------------------------------------------------
-
-
-def prefix_sum(t: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sums of an (n, 8) Montgomery tensor: log2(n)
-    full-width modular adds (Hillis-Steele)."""
-    w = fd.to_w16(t)
-    n = w.shape[0]
-    step = 1
-    while step < n:
-        w = torch.cat((w[:step], fd.w_add(w[step:], w[:-step], FR)), 0)
-        step *= 2
-    return fd.from_w16(w)

@@ -39,8 +39,9 @@ LIBS = {
     "fixed_base": "fixed_base.cu",
     "msm6": "msm6.cu",
     "field": "field.cu",
+    "quotient": "quotient.cu",
 }
-HEADERS = ["bn254.cuh", "seg_scan.cuh"]
+HEADERS = ["bn254.cuh", "seg_scan.cuh", "quotient.cuh"]
 HOST_SOURCE = "bn254_host.cpp"
 # host library -> C source under native/
 NATIVE_LIBS = {
@@ -67,6 +68,8 @@ LAUNCHES = {
     "fixed_base": 0,         # kernel J
     "msm6_level0": 0,        # kernel K
     "field_mul": 0,          # kernel L
+    "quotient": 0,           # kernel M (one a batch: its three phases)
+    "msm8_collect": 0,       # kernel E, v8 collect mode (csrc/msm8.cu)
 }
 
 _LOADED: dict = {}

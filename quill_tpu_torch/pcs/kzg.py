@@ -173,8 +173,10 @@ class KZG:
 
     def open_many(self, polys_xs: list) -> list:
         """Batch of openings [(poly, x), ...] with no transcript events in
-        between: all quotients, then ALL quotient commitments as one fused
-        multi-MSM (engine.msm_many).  Proof
+        between: ALL quotients in one batched device pass
+        (`engine/quotient.py`: kernel M, one host readback for the whole
+        batch), then ALL quotient commitments as one fused multi-MSM
+        (engine.msm_many).  Proof
         objects are byte-identical to sequential `open` calls.
 
         Residency: the fused path holds every quotient vector (one per
@@ -209,11 +211,27 @@ class KZG:
                 for (_, x), y, c in zip(polys_xs, ys, comms)]
 
     def _quotients(self, polys_xs: list) -> list:
-        """(y, q) per opening, input order, by `engine.quotient_by_linear`
-        (the TPU build's batched `engine/quotient.py` path has no
-        counterpart in the port yet)."""
-        return [self.engine.quotient_by_linear(poly, x)
-                for poly, x in polys_xs]
+        """(y, q) per opening, input order.  Device vectors with x != 0,
+        grouped by their count of 2^16-element chunks, batch through
+        `engine.quotient.quotient_many_device` (kernel M on the card);
+        everything else takes per-job `engine.quotient_by_linear`
+        (identical results)."""
+        from ..engine.device import TVec
+        from ..engine.quotient import CHUNK, quotient_many_device
+
+        results: list = [None] * len(polys_xs)
+        groups: dict = {}
+        for i, (poly, x) in enumerate(polys_xs):
+            if isinstance(poly, TVec) and int(x) % R != 0:
+                groups.setdefault(-(-poly.length // CHUNK), []).append(i)
+            else:
+                results[i] = self.engine.quotient_by_linear(poly, x)
+        for idxs in groups.values():
+            outs = quotient_many_device(self.engine,
+                                        [polys_xs[i] for i in idxs])
+            for i, out in zip(idxs, outs):
+                results[i] = out
+        return results
 
     def commit_many(self, polys: list) -> list:
         """Batch of commitments with no transcript events in between, as

@@ -105,8 +105,10 @@ def _against_lib(csrc: Path):
     return fn, usage
 
 
-def shapes(dev, seed: int = 5):
-    """-> {name: (xs, flags or None)}: one v8 chunk's three scans."""
+def chunk(dev, seed: int = 5):
+    """One v8 chunk as the route makes it: 2^16 uniform scalars against 2^16
+    points drawn from 256 multiples of G -> `msm8.chunk_entries`' (sorted
+    digits, scan input, flags)."""
     g = curve.g1_generator()
     pool, _ = ed.affines_to_tensor(
         [g.scalar_mul(k + 2).to_affine() for k in range(256)], dev)
@@ -118,7 +120,12 @@ def shapes(dev, seed: int = 5):
                           generator=gen).view(torch.int32)
     words[:, 7] &= 0x0FFFFFFF                    # canonical, below 2^252
     inf = torch.zeros(n, dtype=torch.bool, device=dev)
-    sorted_d, xs, flags = msm8.chunk_entries(words, xy, inf)
+    return msm8.chunk_entries(words, xy, inf)
+
+
+def shapes(dev, seed: int = 5):
+    """-> {name: (xs, flags or None)}: one v8 chunk's three scans."""
+    sorted_d, xs, flags = chunk(dev, seed)
     ys, wf, offs = msm8.chunk_scan(xs, flags)
     nb = xs.shape[0] // msm8.NWIN
     tot = ys[:, -1].reshape(msm8.NWIN, nb, 3, fd.NLIMB).contiguous()

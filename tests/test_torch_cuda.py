@@ -1,4 +1,5 @@
-"""Kernels A to L on the card against their plain twins, exactly.
+"""Kernels A to M and kernel E's v8 collect mode on the card against their
+plain twins, exactly.
 
 These need an NVIDIA GPU with nvcc (they build the kernels from
 `quill_tpu_torch/csrc`) and skip elsewhere; whether a card is present is
@@ -243,3 +244,63 @@ def test_kernel_l_matches_plain(dev, field):
     assert build.LAUNCHES["field_mul"] == before + 1
     assert torch.equal(got, vec.mont_mul_vec_plain(a, b, f))
     assert fd.to_ints(got, f) == [x * y % mod for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("run", [1, 7, 32])
+def test_kernel_m_matches_plain(dev, run):
+    """Kernel M on one batch of jobs whose lengths cross its tiles (128
+    runs of `run` coefficients) against the plain twin and the host; 17
+    jobs through `quotient_many_device` take two launches."""
+    from quill_tpu_torch.engine import quotient as Q
+    from quill_tpu_torch.engine.device import TorchEngine
+    from quill_tpu_torch.engine.host import HostEngine
+
+    lengths = [1, 2, 33, 127 * run, 128 * run, 128 * run + 1, 9001]
+    xs = [RNG.randrange(1, R) for _ in lengths[:-1]] + [R - 7]
+    cs = [_rand(n, dev) for n in lengths]
+    before = build.LAUNCHES["quotient"]
+    ys, outs = Q.scan(cs, xs, run)
+    assert build.LAUNCHES["quotient"] == before + 1
+    want_ys, want_outs = Q.scan_plain(cs, xs)
+    assert ys == want_ys
+    assert all(torch.equal(a, b) for a, b in zip(outs, want_outs))
+    host = HostEngine()
+    for c, x, y, out in zip(cs[:4], xs, ys, outs):
+        hy, hq = host.quotient_by_linear(fd.to_ints(c), x)
+        assert y == hy and fd.to_ints(out) == [int(v) for v in hq] + [0]
+    eng = TorchEngine("cuda", min_device_size=1)
+    jobs = [(eng.vec_from_ints(fd.to_ints(cs[4])), x) for x in range(1, 18)]
+    before = build.LAUNCHES["quotient"]
+    got = Q.quotient_many_device(eng, jobs)
+    assert build.LAUNCHES["quotient"] == before + 2
+    for (y, q), (y2, q2) in zip(got, Q.quotient_many_plain(jobs)):
+        assert y == y2 and torch.equal(q.rows(), q2.rows())
+
+
+@pytest.mark.parametrize("case", ["random", "equal", "runs"])
+def test_v8_collect_matches_plain(dev, case):
+    """Kernel E's v8 collect mode on one chunk of 600 points (3 blocks a
+    window) against its plain twin and the earlier sparse collect, the same
+    triples, added into buckets that already hold points: uniform scalars
+    (most digits absent), all scalars equal (one digit a window, its run
+    across blocks) and runs of 300 equal scalars."""
+    from quill_tpu_torch.ec import msm8
+    from quill_tpu_torch.probe_collect import collect_sparse
+
+    g = curve.g1_generator()
+    pts = [g.scalar_mul(k + 2).to_affine() for k in range(600)]
+    pts[5] = curve.Affine(curve.Fq(0), curve.Fq(0), infinity=True)
+    basis = M.load_basis(pts, dev)
+    ints = {"random": [RNG.randrange(R) for _ in range(600)],
+            "equal": [R - 12345] * 600,
+            "runs": [RNG.randrange(R)] * 300 + [RNG.randrange(R)] * 300}[case]
+    canon = fd.from_mont(fd.from_ints(ints, fd.FR, dev), fd.FR)
+    sd, xs, fl = msm8.chunk_entries(canon, basis.xy, basis.inf)
+    ys, wf, offs = msm8.chunk_scan(xs, fl)
+    acc0 = msm8.collect(sd, ys, wf, offs,
+                        ed.identity(msm8.NWIN * msm8.NBUCK, dev))
+    before = build.LAUNCHES["msm8_collect"]
+    got = msm8.collect(sd, ys, wf, offs, acc0.clone())
+    assert build.LAUNCHES["msm8_collect"] == before + 1
+    assert torch.equal(got, msm8.collect_plain(sd, ys, wf, offs, acc0.clone()))
+    assert torch.equal(got, collect_sparse(sd, ys, wf, offs, acc0.clone()))

@@ -9,7 +9,11 @@ kernel E's plain twins on the CPU) against the JAX package's curve code.
   and a point at infinity, against `quill_tpu.ec.curve.msm_host` and
   against the port's kernels C + D on the same scalars;
 - `TorchEngine(msm_shift_max=0)` sends MSMs to this route, one at a time,
-  and counts them.
+  and counts them;
+- the collect's plain twin (dense, no compaction) against the earlier
+  sparse collect (`probe_collect.collect_sparse`: `torch.nonzero`, kernel
+  E's two modes, a gather and a scatter), the same triples, on chunks with
+  absent digits, all-equal digits and runs across blocks.
 
 The JAX route (`quill_tpu.ec.msm8.msm_device`) is not run: it does not
 finish on a CPU.  Each v8 MSM runs its triangle over 20 x 8192 buckets,
@@ -125,3 +129,29 @@ def test_engine_takes_v8_route(monkeypatch):
     assert got[1].is_identity()
     assert eng.msm_counts == {"small": 0, "small_batches": 0, "cd": 1,
                               "v8": 2}
+
+
+@pytest.mark.parametrize("case", ["random", "equal", "runs"])
+def test_collect_twin_matches_sparse_collect(case):
+    """One chunk of 300 points (two blocks a window): uniform scalars (most
+    digits absent), all scalars equal (one digit a window, its run across
+    the block boundary), two runs of 150; into accumulators that hold
+    points and identities."""
+    from quill_tpu_torch.probe_collect import collect_sparse
+
+    rng = np.random.default_rng(11)
+    n = 300
+    pts = [p.to_affine() for p in _points(rng, n)]
+    pts[7] = INF
+    basis = M.load_basis(pts, "cpu")
+    ints = {"random": _ints(rng, n), "equal": [R - 12345] * n,
+            "runs": _ints(rng, 1) * 150 + _ints(rng, 1) * 150}[case]
+    canon = fd.from_mont(fd.from_ints(ints), fd.FR)
+    sd, xs, fl = msm8.chunk_entries(canon, basis.xy, basis.inf)
+    ys, wf, offs = msm8.chunk_scan(xs, fl)
+    pool = ed.jacobians_to_proj(_points(rng, 15) + [IDENT])
+    acc0 = pool[torch.from_numpy(rng.integers(
+        0, 16, size=msm8.NWIN * msm8.NBUCK))]
+    got = msm8.collect(sd, ys, wf, offs, acc0.clone())
+    assert torch.equal(got, collect_sparse(sd, ys, wf, offs, acc0.clone()))
+    assert not torch.equal(got, acc0)
