@@ -350,7 +350,7 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     # C and D: MSMs of 2^18 points on the tau CRS, with uniform scalars
     # (witness and quotient commitments) and with the identity column's
     # scalars 0..2^18-1, whose window-1 buckets hold 2^16 points each and
-    # so take kernel C's projective levels
+    # so span thousands of kernel C threads and its fix-up levels
     pts = kzg.g1_points[:big]
     bs = M.slice_basis(kzg._basis, big)
     xy = bs.xy.contiguous()
@@ -367,37 +367,34 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
               f"MSM of 2^18 points ({what}) disagrees with curve.msm_host")
         digits = M.signed_digits(fd.from_mont(s, fd.FR))
         keys, entries = M.sorted_entries(digits, bs.inf)
-        uniq, levels = M.bucket_plan(keys)
         before = build.LAUNCHES["msm_bucket_sum"]
-        sums_k = M.sum_levels(xy, entries, levels)
-        check(build.LAUNCHES["msm_bucket_sum"] - before == len(levels),
-              f"kernel C ({what}) did not launch once per level")
+        sums_k = M.bucket_sums(xy, keys, entries)
+        check(build.LAUNCHES["msm_bucket_sum"] - before == 1,
+              f"kernel C ({what}) took more than one call of its wrapper")
+        _, counts = keys.unique_consecutive(return_counts=True)
         if what == "id column":
-            check(len(levels) > 1,
-                  "the id column never reached kernel C's projective level")
-        sums_p = M.sum_levels(xy, entries, levels, plain=True)
+            check(int(counts.max())
+                  > 4 * M.entries_a_thread(keys.numel()),
+                  "the id column's buckets never spanned kernel C threads")
+        sums_p = M.bucket_sums(xy, keys, entries, plain=True)
         err_c = max(err_c, points_err(sums_k, sums_p))
-        # this data's work: a level-0 piece of L entries does one affine
-        # add (9 products) and L - 2 mixed adds (11); a projective piece
-        # L - 1 adds (12); each entry is read as an index and a point
-        lens0 = levels[0][1].to(torch.int64)
-        products = int(9 * (lens0 >= 2).sum() + 11 * (lens0 - 2).clamp(
-            min=0).sum())
-        nbytes = int(lens0.sum()) * (4 + AFF) + lens0.numel() * (8 + PT)
-        for _, ln in levels[1:]:
-            ln = ln.to(torch.int64)
-            products += 12 * int((ln - 1).sum())
-            nbytes += int(ln.sum()) * PT + ln.numel() * (8 + PT)
-        c_work[what] = (products, nbytes)
+        # this data's least work: an occupied bucket of L >= 2 entries
+        # takes one affine add (9 products) and L - 2 mixed adds (11); each
+        # basis point, key and entry is read once, each bucket written once
+        multi = counts[counts >= 2].to(torch.int64)
+        c_work[what] = (int(9 * multi.numel() + 11 * (multi - 2).sum()),
+                        big * AFF + keys.numel() * 8
+                        + M.NWIN * M.NBUCK * PT)
         c_times[what] = (
-            f"{keys.numel()} entries, {len(levels)} levels",
-            cuda_ms(lambda: M.sum_levels(xy, entries, levels)),
-            cuda_ms(lambda: M.sum_levels(xy, entries, levels, plain=True),
+            f"{keys.numel()} entries in {counts.numel()} buckets (largest "
+            f"{int(counts.max())}), "
+            f"{M.entries_a_thread(keys.numel())} entries a thread",
+            cuda_ms(lambda: M.bucket_sums(xy, keys, entries)),
+            cuda_ms(lambda: M.bucket_sums(xy, keys, entries, plain=True),
                     reps=1))
         log(f"kernel C, {what} ({c_times[what][0]}): {c_times[what][1]:.3f} "
             f"ms vs plain {c_times[what][2]:.3f} ms")
-        dense = ed.identity(M.NWIN * M.NBUCK, dev)
-        dense[uniq] = sums_k
+        dense = sums_k
         err_d = max(err_d, points_err(M.bucket_reduce(dense),
                                       M.bucket_reduce_plain(dense)))
         d_times[what] = (
@@ -405,8 +402,8 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
             cuda_ms(lambda: M.bucket_reduce_plain(dense), reps=1))
         log(f"kernel D, {what}: {d_times[what][0]:.3f} ms vs plain "
             f"{d_times[what][1]:.3f} ms")
-        log(f"MSM 2^18 points, {what} (digits, sort, plan, kernels C+D, "
-            f"host combine): {cuda_ms(lambda: M.msm(bs, s)):.3f} ms")
+        log(f"MSM 2^18 points, {what} (digits, sort, kernels C+D, host "
+            f"combine): {cuda_ms(lambda: M.msm(bs, s)):.3f} ms")
     check(err_c == 0, "kernel C disagrees with its plain twin")
     check(err_d == 0, "kernel D disagrees with its plain twin")
     u, i = c_times["uniform"], c_times["id column"]
@@ -418,17 +415,15 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
            id_column_shape=f"2^18-point MSM, scalars 0..2^18-1: {i[0]}",
            id_column_ms=i[1], id_column_plain_ms=i[2],
            id_column_bound_ms=bound(card, *c_work["id column"])["bound_ms"])
-    # D: 2 adds per bucket in the segment pass; per segment j a
-    # double-and-add by SEG * j and one add, then a 255-add tree
-    nseg = M.NBUCK // M.SEG
-    final = sum((M.SEG * j | 1).bit_length() + bin(M.SEG * j).count("1") + 1
-                for j in range(nseg))
+    # D: the running sum's 2 adds a bucket, whatever the kernel's segments;
+    # every bucket read once, the window sums written
     record("msm_bucket_reduce", "quill_tpu_torch/csrc/msm.cu",
            "quill_tpu/ec/msm7.py:146-160 (v7 Fenwick query phase, XLA "
-           "in the TPU build); quill_tpu/ec/msm6k.py:70 (_lvl_kernel)",
-           12 * M.NWIN * (2 * M.NBUCK + final + nseg - 1),
+           "in the TPU build)",
+           12 * M.NWIN * 2 * M.NBUCK,
            (M.NWIN * M.NBUCK + M.NWIN) * PT,
-           shape="16 windows x 2^15 buckets (uniform scalars)",
+           shape=f"16 windows x 2^15 buckets (uniform scalars), {M.SEG} "
+                 f"buckets a thread",
            max_abs_err=err_d, ms=d_times["uniform"][0],
            plain_ms=d_times["uniform"][1], id_column_ms=d_times["id column"][0],
            id_column_plain_ms=d_times["id column"][1])

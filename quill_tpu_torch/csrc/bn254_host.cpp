@@ -9,6 +9,7 @@
 #include <vector>
 
 #include "bn254.cuh"
+#include "bucket.cuh"
 #include "quotient.cuh"
 #include "seg_scan.cuh"
 
@@ -19,6 +20,110 @@ using namespace bn254;
 static void seg_scan_levels(bool* f, G1P* v, long n) {
   for (long d = 1; d < n; d <<= 1)
     for (long j = n - 1; j >= d; --j) seg_op(f[j - d], v[j - d], f[j], v[j]);
+}
+
+// Kernel C's block step (csrc/msm.cu: block_items) for the nb items of one
+// block: the exclusive segmented scan of their (f, P) -- groups of
+// min(nb, 32) levels as the warps do, then the group totals in order --
+// each head resolved, and the block's item written to meta[0..1], pts[0..47].
+static void block_items_host(const BucketItem* it, long nb, uint32_t* dense,
+                             int* meta, uint32_t* pts) {
+  const long w = nb < 32 ? nb : 32;
+  std::unique_ptr<bool[]> f(new bool[nb]), cf(new bool[nb]);
+  std::unique_ptr<G1P[]> s(new G1P[nb]), carry(new G1P[nb]);
+  for (long t = 0; t < nb; ++t) {
+    f[t] = it[t].f;
+    s[t] = it[t].P;
+  }
+  for (long g = 0; g < nb; g += w) seg_scan_levels(&f[g], &s[g], w);
+  for (long t = 0; t < nb; ++t) {
+    cf[t] = t % w ? f[t - 1] : false;
+    carry[t] = t % w ? s[t - 1] : g1_identity();
+    if (t >= w) {  // the groups before this one
+      bool wf = f[w - 1];
+      G1P wt = s[w - 1];
+      for (long g = 1; g < t / w; ++g) {
+        bool fb = f[g * w + w - 1];
+        G1P b = s[g * w + w - 1];
+        seg_op(wf, wt, fb, b);
+        wf = fb;
+        wt = b;
+      }
+      seg_op(wf, wt, cf[t], carry[t]);
+    }
+  }
+  int head = -1;
+  for (long t = 0; t < nb; ++t) {
+    G1P v;
+    if (it[t].key >= 0 &&
+        resolve(it[t].key, it[t].V, cf[t], carry[t], dense, &v)) {
+      head = it[t].key;
+      g1_store(pts + 24, v);
+    }
+  }
+  bool lf = f[nb - 1];  // the last group's total after the groups before it
+  G1P lp = s[nb - 1];
+  if (nb > w) {
+    bool wf = f[w - 1];
+    G1P wt = s[w - 1];
+    for (long g = 1; g < nb / w - 1; ++g) {
+      bool fb = f[g * w + w - 1];
+      G1P b = s[g * w + w - 1];
+      seg_op(wf, wt, fb, b);
+      wf = fb;
+      wt = b;
+    }
+    seg_op(wf, wt, lf, lp);
+  }
+  meta[0] = lf;
+  meta[1] = head;
+  g1_store(pts, lp);
+}
+
+// One fix-up level of kernel C: n items (meta, pts), blocks of blk threads
+// folding r items each -> ceil(n / (blk r)) items (ometa, opts).
+static void fix_level_host(const int* meta, const uint32_t* pts, long n,
+                           long r, long blk, uint32_t* dense, int* ometa,
+                           uint32_t* opts) {
+  std::vector<BucketItem> it(blk);
+  const long nout = (n + blk * r - 1) / (blk * r);
+  for (long b = 0; b < nout; ++b) {
+    for (long t = 0; t < blk; ++t) {
+      const long g = b * blk + t;
+      const long lo = g * r < n ? g * r : n, hi = lo + r < n ? lo + r : n;
+      it[t] = fold_items(meta, pts, lo, hi, dense);
+    }
+    block_items_host(it.data(), blk, dense, ometa + 2 * b, opts + 48 * b);
+  }
+}
+
+// Kernel D's block step (csrc/msm.cu: block_combine) over nb threads' (a,
+// S): suffix sums of S in groups of min(nb, 32) by levels, plus the later
+// groups' totals; terms a_t + 2^lg suf_t (a_0 alone), summed by a tree over
+// the block.
+static void block_combine_host(const G1P* a, const G1P* S, long nb, int lg,
+                               uint32_t* X, uint32_t* Y) {
+  const long w = nb < 32 ? nb : 32;
+  std::vector<G1P> suf(S, S + nb), x(nb), wsuf(nb / w);
+  for (long d = 1; d < w; d <<= 1) {
+    const std::vector<G1P> o(suf);
+    for (long t = 0; t < nb; ++t)
+      if (t % w + d < w) suf[t] = g1_add(o[t], o[t + d]);
+  }
+  for (long g = 0; g < nb / w; ++g) wsuf[g] = suf[g * w];
+  for (long t = 0; t < nb; ++t) {
+    const long g = t / w;
+    if (g + 1 < nb / w) {
+      G1P later = wsuf[g + 1];
+      for (long h = g + 2; h < nb / w; ++h) later = g1_add(later, wsuf[h]);
+      suf[t] = g1_add(suf[t], later);
+    }
+    x[t] = t == 0 ? a[0] : scaled_add(a[t], suf[t], lg);
+  }
+  for (long h = nb / 2; h > 0; h >>= 1)
+    for (long t = 0; t < h; ++t) x[t] = g1_add(x[t], x[t + h]);
+  g1_store(X, x[0]);
+  if (Y != nullptr) g1_store(Y, suf[0]);
 }
 
 extern "C" {
@@ -164,6 +269,65 @@ void q_quotient_blocked(const uint32_t* c, long n, const uint32_t* tab,
         qt_run_finish(out, itab, lo, hi,
                       fe_add<FrM>(tilet[g], runc[g * blk + t]), carry);
     }
+}
+
+// Kernel C (csrc/msm.cu) emulated: the identity fill, then threads of k
+// entries in blocks of blk (run_sums of bucket.cuh, then the block step),
+// the blocks' items folded one a thread, and the top level in one block.
+// basis (., 16); keys, entries: the n sorted entries; dense: (nd, 24).
+void q_bucket_sums_blocked(const uint32_t* basis, const int* keys,
+                           const int* entries, long n, long k, long blk,
+                           long nd, uint32_t* dense) {
+  for (long i = 0; i < nd; ++i) g1_store(dense + 24 * i, g1_identity());
+  if (n == 0) return;
+  const long nt = (n + k - 1) / k, n1 = (nt + blk - 1) / blk;
+  const long n2 = (n1 + blk - 1) / blk;
+  std::vector<int> m1(2 * n1), m2(2 * n2), m3(2);
+  std::vector<uint32_t> p1(48 * n1), p2(48 * n2), p3(48);
+  std::vector<BucketItem> it(blk);
+  for (long b = 0; b < n1; ++b) {
+    for (long t = 0; t < blk; ++t) {
+      const long g = b * blk + t;
+      const long lo = g * k < n ? g * k : n, hi = lo + k < n ? lo + k : n;
+      it[t] = lo < hi ? run_sums(basis, keys, entries, n, lo, hi, dense)
+                      : empty_item();
+    }
+    block_items_host(it.data(), blk, dense, &m1[2 * b], &p1[48 * b]);
+  }
+  fix_level_host(m1.data(), p1.data(), n1, 1, blk, dense, m2.data(),
+                 p2.data());
+  fix_level_host(m2.data(), p2.data(), n2, (n2 + blk - 1) / blk, blk, dense,
+                 m3.data(), p3.data());
+}
+
+// Kernel D (csrc/msm.cu) emulated: buckets (nwin, nb, 24), segments of s
+// buckets (seg_sums of bucket.cuh) in blocks of blk (a power of two), each
+// block combined, then one block a window over its nb / (s blk) <= blk
+// block items; out (nwin, 24).  Returns -1 on shapes the kernel refuses.
+int q_bucket_reduce_blocked(const uint32_t* buckets, long nwin, long nb,
+                            long s, long blk, uint32_t* out) {
+  if (nb % (s * blk) != 0 || nb / (s * blk) > blk) return -1;
+  int lg = 0, lgb = 0;
+  while ((1L << lg) < s) ++lg;
+  while ((1L << lgb) < blk) ++lgb;
+  const long nblk = nb / (s * blk);
+  std::vector<uint32_t> xy(48 * nwin * nblk);
+  std::vector<G1P> a(blk), S(blk);
+  for (long b = 0; b < nwin * nblk; ++b) {
+    for (long t = 0; t < blk; ++t)
+      seg_sums(buckets + 24 * (b * blk + t) * s, (int)s, &a[t], &S[t]);
+    block_combine_host(a.data(), S.data(), blk, lg, &xy[48 * b],
+                       &xy[48 * b + 24]);
+  }
+  for (long w = 0; w < nwin; ++w) {
+    for (long t = 0; t < blk; ++t) {
+      a[t] = t < nblk ? g1_load(&xy[48 * (w * nblk + t)]) : g1_identity();
+      S[t] = t < nblk ? g1_load(&xy[48 * (w * nblk + t) + 24]) : g1_identity();
+    }
+    block_combine_host(a.data(), S.data(), blk, lg + lgb, out + 24 * w,
+                       nullptr);
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -13,7 +13,8 @@ MSM:
 2. every nonzero digit becomes an entry keyed by (window, |d| - 1), and
    `torch.sort` orders the keys (where the TPU build used XLA
    `sort_key_val`, `ec/msm7.py:96`);
-3. kernel C sums each key's run of points into its bucket;
+3. kernel C sums each key's run of points into its bucket, in a fixed
+   number of launches that read nothing back;
 4. kernel D reduces each window's 2^15 buckets to sum_b b * B_b;
 5. the 16 window sums are combined on the host with `curve.Jacobian`.
 """
@@ -33,9 +34,12 @@ from . import device as ed
 WBITS = 16
 NWIN = 16
 NBUCK = 1 << (WBITS - 1)   # |d| in [1, 2^15]
-PIECE = 16                 # most entries one kernel C thread sums
-SEG = 128                  # buckets per kernel D segment: 2^15 / SEG must
-                           # be MSM_FINAL_BLOCK of csrc/msm.cu
+K_MIN, K_MAX = 16, 128     # sorted entries a kernel C thread sums
+BLOCK = 64                 # threads a block of kernels C and D (msm.cu:
+                           # MSM_BLOCK)
+SEG = 16                   # buckets a kernel D thread reduces; with BLOCK
+                           # the fastest on an H100 (PERF.md)
+assert NBUCK % (SEG * BLOCK) == 0 and NBUCK // (SEG * BLOCK) <= BLOCK
 
 _FN = {}
 
@@ -43,14 +47,12 @@ _FN = {}
 def _fns():
     if not _FN:
         lib = build.lib("msm")
-        _FN["aff"] = build.bind(lib, "quill_msm_bucket_sum_affine", [
-            build.VP, build.VP, build.VP, build.VP, build.I32, build.VP,
-            build.VP])
-        _FN["proj"] = build.bind(lib, "quill_msm_bucket_sum_proj", [
-            build.VP, build.VP, build.VP, build.I32, build.VP, build.VP])
+        _FN["sums"] = build.bind(lib, "quill_msm_bucket_sums", [
+            build.VP, build.VP, build.VP, build.I64, build.I32, build.I64,
+            build.VP, build.VP, build.VP, build.VP])
         _FN["reduce"] = build.bind(lib, "quill_msm_bucket_reduce", [
             build.VP, build.I32, build.I32, build.I32, build.VP, build.VP,
-            build.VP, build.VP])
+            build.VP])
     return _FN
 
 
@@ -99,8 +101,8 @@ def signed_digits(s: torch.Tensor) -> torch.Tensor:
 
 
 def sorted_entries(digits: torch.Tensor, inf: torch.Tensor):
-    """-> (keys, entries): keys window * 2^15 + |d| - 1 in sorted order,
-    entries point * 2 + sign (int32) in the same order."""
+    """-> (keys, entries): int32 keys window * 2^15 + |d| - 1 in sorted
+    order, int32 entries point * 2 + sign in the same order."""
     n = digits.shape[0]
     dev = digits.device
     win = torch.arange(NWIN, dtype=torch.int64, device=dev)
@@ -108,25 +110,9 @@ def sorted_entries(digits: torch.Tensor, inf: torch.Tensor):
     pt = torch.arange(n, dtype=torch.int64, device=dev).unsqueeze(1)
     ent = pt * 2 + (digits < 0).to(torch.int64)
     valid = (digits != 0) & ~inf.unsqueeze(1)
-    keys, ent = keys[valid], ent[valid]
+    keys, ent = keys[valid].to(torch.int32), ent[valid]
     keys, perm = torch.sort(keys)
     return keys, ent[perm].to(torch.int32)
-
-
-def pieces(counts: torch.Tensor):
-    """Cut runs of the given lengths into pieces of at most PIECE.
-    Returns (starts, lens) int32 and the piece count of every run."""
-    dev = counts.device
-    nper = (counts + PIECE - 1) // PIECE
-    run_start = torch.cumsum(counts, 0) - counts
-    first = torch.cumsum(nper, 0) - nper
-    run = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
-                                  nper)
-    j = torch.arange(run.shape[0], device=dev) - first[run]
-    starts = run_start[run] + j * PIECE
-    lens = torch.minimum(torch.full_like(starts, PIECE),
-                         counts[run] - j * PIECE)
-    return starts.to(torch.int32), lens.to(torch.int32), nper
 
 
 # ---------------------------------------------------------------------------
@@ -139,108 +125,66 @@ def _require(ok: bool, what: str) -> None:
         raise ValueError(f"MSM kernel input: {what}")
 
 
-def _check_index(*tensors):
-    for t in tensors:
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def entries_a_thread(n: int) -> int:
+    """Kernel C's K for n sorted entries: the power of two in [K_MIN, K_MAX]
+    nearest n / 2^15, so about 2^15 threads (two thirds of a wave of the
+    H100 at 384 threads an SM); the fastest measured from 2^17 to 2^22
+    points (PERF.md), while a sparse MSM keeps enough threads."""
+    k = K_MIN
+    while k < K_MAX and 3 * k << 14 <= n:        # n >= 1.5 k 2^15
+        k *= 2
+    return k
+
+
+def bucket_sums(xy, keys, entries, plain: bool = False,
+                test_k: int | None = None):
+    """Sorted keys and entries (`sorted_entries`) against the (n, 2, 8)
+    affine basis -> (NWIN * NBUCK, 3, 8) bucket sums, the identity where no
+    entry falls.  Kernel C: a thread sums `entries_a_thread` consecutive
+    entries; a fixed number of launches, nothing read back.  `plain` runs
+    the plain twin whatever the device.  `test_k`, a hook for the card
+    tests and `probe_msm --sweep`, sets the entries a thread instead."""
+    if plain or not xy.is_cuda:
+        return bucket_sums_plain(xy, keys, entries)
+    _require(xy.dtype == torch.int32 and xy.is_contiguous()
+             and xy.shape[1:] == (2, fd.NLIMB), "basis must be (n, 2, 8)")
+    for t in (keys, entries):
         _require(t.is_cuda and t.dtype == torch.int32 and t.is_contiguous(),
-                 "entries, starts and lens must be contiguous int32 on CUDA")
-    _require(tensors[-2].shape == tensors[-1].shape,
-             "starts and lens differ in length")
+                 "keys and entries must be contiguous int32 on CUDA")
+    _require(keys.shape == entries.shape, "keys and entries differ in length")
+    n = keys.shape[0]
+    k = entries_a_thread(n) if test_k is None else test_k
+    _require(k >= 1, "k must be positive")
+    n1 = _cdiv(_cdiv(n, k), BLOCK)                  # the blocks' items
+    m = n1 + _cdiv(n1, BLOCK) + 1
+    dev = xy.device
+    dense = torch.empty((NWIN * NBUCK, 3, fd.NLIMB), dtype=torch.int32,
+                        device=dev)
+    meta = torch.empty((m, 2), dtype=torch.int32, device=dev)
+    pts = torch.empty((m, 2, 3, fd.NLIMB), dtype=torch.int32, device=dev)
+    rc = _fns()["sums"](xy.data_ptr(), keys.data_ptr(), entries.data_ptr(), n,
+                     k, NWIN * NBUCK, dense.data_ptr(), meta.data_ptr(),
+                     pts.data_ptr(), build.stream_ptr())
+    build.check(rc, "msm_bucket_sum")
+    build.count("msm_bucket_sum")
+    return dense
 
 
-def bucket_sum_affine(xy, entries, starts, lens):
-    """Level 0: piece sums of signed affine basis points -> (p, 3, 8)."""
-    if xy.is_cuda:
-        _require(xy.dtype == torch.int32 and xy.is_contiguous()
-                 and xy.shape[1:] == (2, fd.NLIMB), "basis must be (n, 2, 8)")
-        _check_index(entries, starts, lens)
-        out = torch.empty((starts.shape[0], 3, fd.NLIMB), dtype=torch.int32,
-                          device=xy.device)
-        rc = _fns()["aff"](xy.data_ptr(), entries.data_ptr(),
-                           starts.data_ptr(), lens.data_ptr(),
-                           starts.shape[0], out.data_ptr(),
-                           build.stream_ptr())
-        build.check(rc, "msm_bucket_sum")
-        build.count("msm_bucket_sum")
-        return out
-    return bucket_sum_affine_plain(xy, entries, starts, lens)
-
-
-def bucket_sum_proj(pts, starts, lens):
-    """Levels >= 1: piece sums of projective partials -> (p, 3, 8)."""
-    if pts.is_cuda:
-        _require(pts.dtype == torch.int32 and pts.is_contiguous()
-                 and pts.shape[1:] == (3, fd.NLIMB), "points must be (n, 3, 8)")
-        _check_index(starts, lens)
-        out = torch.empty((starts.shape[0], 3, fd.NLIMB), dtype=torch.int32,
-                          device=pts.device)
-        rc = _fns()["proj"](pts.data_ptr(), starts.data_ptr(),
-                            lens.data_ptr(), starts.shape[0],
-                            out.data_ptr(), build.stream_ptr())
-        build.check(rc, "msm_bucket_sum")
-        build.count("msm_bucket_sum")
-        return out
-    return bucket_sum_proj_plain(pts, starts, lens)
-
-
-def _signed_points_w(xy, entries, idx):
-    e = entries[idx].to(torch.int64)
-    pts = fd.to_w16(xy[e >> 1])                      # (p, 2, 16)
-    return ed.neg_y_w(pts, (e & 1).bool())
-
-
-def bucket_sum_affine_plain(xy, entries, starts, lens):
-    """Adds only where a piece still has entries: most pieces of a sparse
-    MSM hold one point."""
-    s = starts.to(torch.int64)
-    ln = lens.to(torch.int64)
-    acc = ed.affine_to_proj_w(_signed_points_w(xy, entries, s))
-    sel = torch.nonzero(ln >= 2).flatten()
-    acc[sel] = ed.aadd_w(_signed_points_w(xy, entries, s[sel]),
-                         _signed_points_w(xy, entries, s[sel] + 1))
-    for j in range(2, int(ln.max()) if ln.numel() else 0):
-        sel = torch.nonzero(ln > j).flatten()
-        acc[sel] = ed.madd_w(acc[sel], _signed_points_w(xy, entries, s[sel] + j))
-    return fd.from_w16(acc)
-
-
-def bucket_sum_proj_plain(pts, starts, lens):
-    s = starts.to(torch.int64)
-    ln = lens.to(torch.int64)
-    acc = fd.to_w16(pts[s])
-    for j in range(1, int(ln.max()) if ln.numel() else 0):
-        sel = torch.nonzero(ln > j).flatten()
-        acc[sel] = ed.padd_w(acc[sel], fd.to_w16(pts[s[sel] + j]))
-    return fd.from_w16(acc)
-
-
-def bucket_plan(keys):
-    """Sorted keys -> (bucket keys, [(starts, lens), ...]): the pieces of
-    level 0 (runs of entries) and of every further level (runs of the
-    previous level's partial sums), until one partial is left per bucket."""
-    uniq, counts = torch.unique_consecutive(keys, return_counts=True)
-    levels = []
-    while True:
-        starts, lens, counts = pieces(counts)
-        levels.append((starts, lens))
-        if int(counts.max()) <= 1:
-            return uniq, levels
-
-
-def sum_levels(xy, entries, levels, plain: bool = False):
-    """Kernel C over a bucket plan -> (B, 3, 8) bucket sums.  `plain` runs
-    the plain twins whatever the device."""
-    aff = bucket_sum_affine_plain if plain else bucket_sum_affine
-    proj = bucket_sum_proj_plain if plain else bucket_sum_proj
-    partial = aff(xy, entries, *levels[0])
-    for starts, lens in levels[1:]:
-        partial = proj(partial, starts, lens)
-    return partial
-
-
-def bucket_sums(xy, keys, entries, plain: bool = False):
-    """Sorted entries -> (bucket keys, (B, 3, 8) bucket sums)."""
-    uniq, levels = bucket_plan(keys)
-    return uniq, sum_levels(xy, entries, levels, plain)
+def bucket_sums_plain(xy, keys, entries):
+    """The same sums: signed points summed by a pairwise tree within each
+    run of equal keys (`segment_sums_w`), scattered into identities."""
+    dense = ed.identity(NWIN * NBUCK, xy.device)
+    if keys.numel() == 0:
+        return dense
+    e = entries.to(torch.int64)
+    pts = ed.neg_y_w(fd.to_w16(xy[e >> 1]), (e & 1).bool())
+    uniq, sums = segment_sums_w(keys, ed.affine_to_proj_w(pts))
+    dense[uniq.to(torch.int64)] = fd.from_w16(sums)
+    return dense
 
 
 # ---------------------------------------------------------------------------
@@ -250,23 +194,22 @@ def bucket_sums(xy, keys, entries, plain: bool = False):
 
 def bucket_reduce(buckets: torch.Tensor) -> torch.Tensor:
     """(NWIN * NBUCK, 3, 8) dense buckets (bucket i of a window holds digit
-    i + 1) -> (NWIN, 3, 8) window sums sum_i (i + 1) B_i."""
-    if buckets.is_cuda:
-        _require(buckets.dtype == torch.int32
-                 and buckets.shape == (NWIN * NBUCK, 3, fd.NLIMB),
-                 "buckets must be (16 * 2^15, 3, 8) int32")
-        dev = buckets.device
-        nseg = NWIN * (NBUCK // SEG)
-        a = torch.empty((nseg, 3, fd.NLIMB), dtype=torch.int32, device=dev)
-        s = torch.empty_like(a)
-        out = torch.empty((NWIN, 3, fd.NLIMB), dtype=torch.int32, device=dev)
-        rc = _fns()["reduce"](buckets.contiguous().data_ptr(), NWIN, NBUCK,
-                              SEG, a.data_ptr(), s.data_ptr(), out.data_ptr(),
-                              build.stream_ptr())
-        build.check(rc, "msm_bucket_reduce")
-        build.count("msm_bucket_reduce")
-        return out
-    return bucket_reduce_plain(buckets)
+    i + 1) -> (NWIN, 3, 8) window sums sum_i (i + 1) B_i.  Kernel D: a
+    thread reduces SEG buckets, a block and then a window combine them."""
+    if not buckets.is_cuda:
+        return bucket_reduce_plain(buckets)
+    _require(buckets.dtype == torch.int32 and buckets.is_contiguous()
+             and buckets.shape == (NWIN * NBUCK, 3, fd.NLIMB),
+             "buckets must be contiguous (16 * 2^15, 3, 8) int32")
+    dev = buckets.device
+    xy = torch.empty((NWIN * (NBUCK // (SEG * BLOCK)), 2, 3, fd.NLIMB),
+                     dtype=torch.int32, device=dev)
+    out = torch.empty((NWIN, 3, fd.NLIMB), dtype=torch.int32, device=dev)
+    rc = _fns()["reduce"](buckets.data_ptr(), NWIN, NBUCK, SEG,
+                          xy.data_ptr(), out.data_ptr(), build.stream_ptr())
+    build.check(rc, "msm_bucket_reduce")
+    build.count("msm_bucket_reduce")
+    return out
 
 
 def segment_sums_w(keys: torch.Tensor, pts: torch.Tensor):
@@ -339,7 +282,7 @@ def bucket_reduce_plain(buckets: torch.Tensor) -> torch.Tensor:
 def dense_buckets(basis: TorchBasis, scalars: torch.Tensor,
                   plain: bool = False):
     """Digits, sort and kernel C: -> (NWIN * NBUCK, 3, 8) buckets, or None
-    when every digit is zero."""
+    when every digit is zero.  Nothing is read back after the sort."""
     n = min(basis.length, scalars.shape[0])
     if n == 0:
         return None
@@ -347,10 +290,7 @@ def dense_buckets(basis: TorchBasis, scalars: torch.Tensor,
     keys, entries = sorted_entries(digits, basis.inf[:n])
     if keys.numel() == 0:
         return None
-    uniq, sums = bucket_sums(basis.xy[:n].contiguous(), keys, entries, plain)
-    dense = ed.identity(NWIN * NBUCK, basis.xy.device)
-    dense[uniq] = sums
-    return dense
+    return bucket_sums(basis.xy[:n].contiguous(), keys, entries, plain)
 
 
 def window_sums(basis: TorchBasis, scalars: torch.Tensor,

@@ -41,7 +41,7 @@ LIBS = {
     "field": "field.cu",
     "quotient": "quotient.cu",
 }
-HEADERS = ["bn254.cuh", "seg_scan.cuh", "quotient.cuh"]
+HEADERS = ["bn254.cuh", "seg_scan.cuh", "quotient.cuh", "bucket.cuh"]
 HOST_SOURCE = "bn254_host.cpp"
 # host library -> C source under native/
 NATIVE_LIBS = {

@@ -59,9 +59,11 @@ def test_kernel_b_matches_plain(dev):
 
 @pytest.mark.parametrize("skewed", [False, True])
 def test_kernels_c_d_match_plain_and_host(dev, skewed):
-    """Uniform scalars fill kernel C's affine level only; scalars in
-    {0, 1, 2} put ~85 points in a bucket, which takes its projective
-    levels as well."""
+    """Uniform scalars put about one entry in a bucket; scalars in {0, 1, 2}
+    put ~85 points in a bucket, which spans several kernel C threads of 16
+    entries (the rule's K for so few entries) and takes its fix-up; K =
+    128 puts whole buckets in one thread.  Either way kernel C is one call
+    of the wrapper, a fixed set of launches."""
     g = curve.g1_generator()
     pts = [g.scalar_mul(k + 2).to_affine() for k in range(256)]
     pts[3] = curve.Affine(curve.Fq(0), curve.Fq(0), infinity=True)
@@ -72,14 +74,72 @@ def test_kernels_c_d_match_plain_and_host(dev, skewed):
         ints = [RNG.randrange(R) for _ in range(256)]
         ints[:3] = [0, 1, R - 1]
     s = fd.from_ints(ints, fd.FR, dev)
+    keys, entries = M.sorted_entries(
+        M.signed_digits(fd.from_mont(s, fd.FR)), basis.inf)
+    _, counts = keys.unique_consecutive(return_counts=True)
+    assert (int(counts.max()) > 4 * 16) == skewed
     before = build.LAUNCHES["msm_bucket_sum"]
     dense_k = M.dense_buckets(basis, s)
-    assert (build.LAUNCHES["msm_bucket_sum"] - before > 1) == skewed
+    assert build.LAUNCHES["msm_bucket_sum"] == before + 1
     dense_p = M.dense_buckets(basis, s, plain=True)
     assert bool(ed.points_equal(dense_k, dense_p).all())
+    assert bool(ed.points_equal(
+        M.bucket_sums(basis.xy, keys, entries, test_k=128), dense_p).all())
     wk, wp = M.bucket_reduce(dense_k), M.bucket_reduce_plain(dense_k)
     assert bool(ed.points_equal(wk, wp).all())
     assert M.msm(basis, s) == curve.msm_host(pts, ints)
+
+
+def _pool_basis(n, dev, seed):
+    """n basis points drawn on the card from 256 multiples of G."""
+    g = curve.g1_generator()
+    pool, _ = ed.affines_to_tensor(
+        [g.scalar_mul(k + 2).to_affine() for k in range(256)], dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    xy = pool[torch.randint(0, 256, (n,), generator=gen, device=dev)]
+    return M.TorchBasis(xy=xy.contiguous(),
+                        inf=torch.zeros(n, dtype=torch.bool, device=dev),
+                        length=n)
+
+
+def test_kernel_c_one_bucket_of_2_16_entries(dev):
+    """Every scalar 1: all 2^16 entries fall in one bucket, which spans
+    2^16 / M.entries_a_thread(2^16) threads over many blocks and both
+    fix-up levels."""
+    n = 1 << 16
+    basis = _pool_basis(n, dev, 17)
+    s = fd.from_ints([1] * n, fd.FR, dev)
+    keys, entries = M.sorted_entries(
+        M.signed_digits(fd.from_mont(s, fd.FR)), basis.inf)
+    assert keys.shape[0] == n and int(keys.max()) == 0
+    dense_k = M.bucket_sums(basis.xy, keys, entries)
+    dense_p = M.bucket_sums(basis.xy, keys, entries, plain=True)
+    assert bool((dense_k != 0).any(-1).any(-1).all())
+    assert bool(ed.points_equal(dense_k, dense_p).all())
+    assert bool(ed.points_equal(M.bucket_reduce(dense_k),
+                                M.bucket_reduce_plain(dense_p)).all())
+
+
+def test_kernels_c_d_read_nothing_back(dev):
+    """From the sorted entries to kernel D's window sums nothing
+    synchronises with the host: under sync debug mode "error" any readback
+    or blocking copy would raise."""
+    basis = _pool_basis(1 << 14, dev, 18)
+    s = fd.from_ints([RNG.randrange(R) for _ in range(1 << 14)], fd.FR, dev)
+    keys, entries = M.sorted_entries(
+        M.signed_digits(fd.from_mont(s, fd.FR)), basis.inf)
+    want = M.bucket_reduce(M.bucket_sums(basis.xy, keys, entries))  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = M.bucket_reduce(M.bucket_sums(basis.xy, keys, entries))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    plain = M.bucket_reduce_plain(
+        M.bucket_sums(basis.xy, keys, entries, plain=True))
+    assert bool(ed.points_equal(got, plain).all())
+    assert bool(ed.points_equal(want, plain).all())
 
 
 def test_kernels_e_to_h_match_plain(dev):

@@ -3,8 +3,8 @@ against `ec/curve.py: msm_host`.
 
 Cases from `scripts/check_msm7.py`: a general basis with a point at
 infinity, scalars 0, 1 and r - 1, a batch with short and empty members,
-and the tau CRS; plus skewed scalars whose long bucket runs take extra
-kernel C levels.  Sizes 2^8 to 2^10.
+and the tau CRS; plus skewed scalars whose long bucket runs span several
+kernel C threads.  Sizes 2^8 to 2^10.
 """
 
 import random
@@ -61,8 +61,17 @@ def test_skewed_scalars_take_extra_levels(engine, general_points):
     digits = M.signed_digits(fd.from_mont(s.rows()))
     keys, _ = M.sorted_entries(digits, basis.inf)
     _, counts = keys.unique_consecutive(return_counts=True)
-    assert int(counts.max()) > M.PIECE
+    k = M.entries_a_thread(keys.numel())
+    assert int(counts.max()) > 4 * k           # over 4+ kernel C threads
     assert engine.msm(basis, s) == curve.msm_host(pts, scalars)
+
+
+@pytest.mark.parametrize("n,k", [(0, 16), (491_516, 16), (2_097_108, 64),
+                                 (4_194_198, 128), (67_107_362, 128)])
+def test_entries_a_thread(n, k):
+    """Kernel C's K at the entry counts of an empty MSM, the 2^18-point id
+    column and uniform 2^17-, 2^18- and 2^22-point MSMs."""
+    assert M.entries_a_thread(n) == k
 
 
 def test_msm_many_short_and_empty(engine, general_points):
