@@ -25,9 +25,12 @@ Phases, any failure exits non-zero:
 4. kernels: each kernel against its plain twin on the card, exactly, at
    the shapes the proves give it, with the times of the kernel wrappers
    and of the plain twins and the least time the card could take for the
-   same work (kernel M at an open_many batch of each prove, 4 openings of
-   ~2^22 and 8 of ~2^18 coefficients; kernel E's v8 collect mode on one v8
-   chunk); the 2^18-point MSMs also against the native host MSM; the
+   same work (kernel A also at a fold + round over 5 tables of 2^22;
+   every launch of kernel B's 2^18 x 2^18 product -- forward, product and
+   inverse passes, the twiddle table, the S fold -- and its 2^22 x 2^22
+   product timed; kernel M at an open_many batch of each prove, 4 openings
+   of ~2^22 and 8 of ~2^18 coefficients; kernel E's v8 collect mode on one
+   v8 chunk); the 2^18-point MSMs also against the native host MSM; the
    small-route MSM of 4 x 2^16 points, v6 MSMs of 2^18 and 2^20 points and
    a v8 MSM of 2^22 points against kernels C and D on the same scalars;
 5. field bench (`python -m quill_tpu_torch.bench_field`): kernel L's
@@ -237,7 +240,6 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     import torch
 
     from quill_tpu_torch.ec import curve, native_ec
-    from quill_tpu_torch.ec import device as ed
     from quill_tpu_torch.ec import msm as M
     from quill_tpu_torch.ec import msm5
     from quill_tpu_torch.engine import sumcheck as sc
@@ -246,7 +248,6 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     from quill_tpu_torch.fields.bn254 import R
     from quill_tpu_torch.kernels import build
     from quill_tpu_torch.piops.virtual_poly import Const, Input
-    from quill_tpu_torch.poly import ntt
 
     dev = engine.device
     rows = 1 << LOG2_ROWS
@@ -263,90 +264,53 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
                             library_ms=None))
 
     # A: the prove's largest rounds, degree 3: round 0 over 7 tables of
-    # 2^16, and a fused fold + round over 5 tables of 2^18
+    # 2^16, a fused fold + round over 5 tables of 2^18, and the fold +
+    # round of the 2^20-row prove's largest tables, 5 of 2^22
     x = [Input(i) for i in range(7)]
+    fold_expr = (x[0] * x[1] - x[2]) * x[3] + x[4] * Const(5)
     cases = [
         ("round 0, 7 tables of 2^16", rows, None,
          (x[0] * x[1] - x[2]) * x[3] + (x[4] - x[5]) * x[6] + Const(R - 3)),
-        ("fold + round, 5 tables of 2^18", big, rng.randrange(R),
-         (x[0] * x[1] - x[2]) * x[3] + x[4] * Const(5)),
+        ("fold + round, 5 tables of 2^18", big, rng.randrange(R), fold_expr),
+        (f"fold + round, 5 tables of 2^{BIG_LOG2_ROWS + 2}",
+         1 << (BIG_LOG2_ROWS + 2), rng.randrange(R), fold_expr),
     ]
     err, times = 0, []
-    for what, n, r, expr in cases:
-        tables = [rand_fr(n) for _ in expr.used_inputs()]
+    for i, (what, n, r, expr) in enumerate(cases):
+        tables = [uniform_scalars(n, dev, 300 + 10 * i + j)
+                  for j in expr.used_inputs()]
         got, gf = sc.round_messages(tables, expr, 3, r)
         want, wf = sc.round_messages(tables, expr, 3, r, plain=True)
         err = max(err, max_abs_err(got, want))
         for a, b in zip(gf or [], wf or []):
             err = max(err, tensor_err(a, b))
+        del want, wf
         times.append((
             what, cuda_ms(lambda: sc.round_messages(tables, expr, 3, r)),
             cuda_ms(lambda: sc.round_messages(tables, expr, 3, r,
                                               plain=True), reps=1)))
         log(f"kernel A, {what}: {times[-1][1]:.3f} ms vs plain "
             f"{times[-1][2]:.3f} ms")
+        del tables, gf
     check(err == 0, "kernel A disagrees with its plain twin")
-    # per pair of folded outputs: 2 fold products per table, then the
-    # program at t = 0..3; reads 4 rows and writes 2 per table
-    k = len(cases[1][3].used_inputs())
-    muls = sum(1 for op in compile_expr(cases[1][3]).ops if op == OP_MUL)
-    pairs = big // 4
+
+    def a_work(n):
+        # per pair of folded outputs: 2 fold products per table, then the
+        # program at t = 0..3; reads 4 rows and writes 2 per table
+        k = len(fold_expr.used_inputs())
+        muls = sum(1 for op in compile_expr(fold_expr).ops if op == OP_MUL)
+        return (n // 4) * (2 * k + 4 * muls), k * (n + n // 2) * FE
+
     record("sumcheck_round", "quill_tpu_torch/csrc/sumcheck_round.cu",
            "quill_tpu/engine/sumcheck8.py:292 (_round8_kernel); "
            "quill_tpu/engine/sumcheck8.py:174 (_entry_kernel)",
-           pairs * (2 * k + 4 * muls), k * (big + big // 2) * FE,
-           shape=times[1][0], max_abs_err=err, ms=times[1][1],
+           *a_work(big), shape=times[1][0], max_abs_err=err, ms=times[1][1],
            plain_ms=times[1][2], round0_ms=times[0][1],
-           round0_plain_ms=times[0][2])
+           round0_plain_ms=times[0][2], big_shape=times[2][0],
+           big_ms=times[2][1], big_plain_ms=times[2][2],
+           big_bound_ms=bound(card, *a_work(cases[2][1]))["bound_ms"])
 
-    # B: the prove's largest product, 2^18 x 2^18 (transforms of 2^19)
-    a, b = rand_fr(big), rand_fr(big)
-    err = tensor_err(ntt.poly_mul(a, b), ntt.poly_mul(a, b, plain=True))
-    small = fd.to_ints(ntt.poly_mul(a[:64], b[:64])[:127])
-    host = engine.host
-    want = host.poly_mul(host.vec_from_ints(fd.to_ints(a[:64])),
-                         host.vec_from_ints(fd.to_ints(b[:64])))
-    check(small == [int(v) for v in want],
-          "kernel B product differs from the host product")
-    n = 2 * big
-    padded = torch.zeros((n, fd.NLIMB), dtype=torch.int32, device=dev)
-    padded[:big] = a
-    tw = ntt.twiddles(n, False, str(dev))
-    xk = padded[ntt.bitrev(n, str(dev))].contiguous()
-    xp = xk.clone()
-    ntt.stages(xk, tw)
-    ntt.stages(xp, tw, plain=True)
-    err = max(err, tensor_err(xk, xp))
-    check(err == 0, "kernel B disagrees with its plain twin")
-    stages = n.bit_length() - 1
-    record("ntt_stage", "quill_tpu_torch/csrc/ntt.cu",
-           "quill_tpu/poly/ntt8.py:135 (_ntt_body)",
-           stages * (n // 2), (2 * n + n // 2) * FE,
-           shape="19 stages of one 2^19-point NTT (poly_mul 2^18 x 2^18)",
-           max_abs_err=err, ms=cuda_ms(lambda: ntt.stages(xk, tw)),
-           plain_ms=cuda_ms(lambda: ntt.stages(xp, tw, plain=True), reps=1))
-    # the 2^20-row prove's largest product (2^22 x 2^22: transforms of
-    # 2^23 points), timed only: its plain twin would take minutes
-    nbig = 1 << (BIG_LOG2_ROWS + 3)
-    xb = uniform_scalars(nbig, dev, 77)
-    twb = ntt.twiddles(nbig, False, str(dev))
-    big_stages = nbig.bit_length() - 1
-    rec = records[-1]
-    rec.update(
-        ms_per_launch=rec["ms"] / stages,
-        bound_ms_per_launch=rec["bound_ms"] / stages,
-        big_shape=f"{big_stages} stages of one 2^{big_stages}-point NTT (the "
-                  f"2^{BIG_LOG2_ROWS}-row prove's largest product)",
-        big_ms=cuda_ms(lambda: ntt.stages(xb, twb)),
-        big_bound_ms=bound(card, big_stages * (nbig // 2),
-                           (2 * nbig + nbig // 2) * FE)["bound_ms"])
-    rec["big_ms_per_launch"] = rec["big_ms"] / big_stages
-    del xb, twb
-    log(f"kernel B: exact; {rec['ms']:.3f} ms vs plain {rec['plain_ms']:.3f}"
-        f" ms ({rec['ms_per_launch']:.4f} ms a launch); {rec['big_shape']}:"
-        f" {rec['big_ms']:.3f} ms ({rec['big_ms_per_launch']:.4f} ms a "
-        f"launch, bound {rec['big_bound_ms'] / big_stages:.4f})")
-
+    records.extend(ntt_kernels(engine, card, big, rand_fr))
     # C and D: MSMs of 2^18 points on the tau CRS, with uniform scalars
     # (witness and quotient commitments) and with the identity column's
     # scalars 0..2^18-1, whose window-1 buckets hold 2^16 points each and
@@ -526,6 +490,197 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     records.append(quotient_kernel(dev, rng, card))
     records += v8_kernels(kzg_big, card)
     return records
+
+
+def ntt_kernels(engine, card, big, rand_fr):
+    """Kernel B's launch-level functions against their plain twins on the
+    same inputs, exactly, at the 2^16-row prove's largest product (2^18 x
+    2^18 coefficients: transforms of 2^19 points, two passes each): every
+    forward, product and inverse pass of one product, the twiddle table
+    and the S fold.  The 2^20-row prove's (2^22 x 2^22: 2^23 points, three
+    passes a transform) timed: a forward transform, pass by pass, the whole
+    product and the whole S polynomial.  -> records."""
+    import torch
+
+    from quill_tpu_torch.engine.device import TVec
+    from quill_tpu_torch.fields import device as fd
+    from quill_tpu_torch.kernels import build
+    from quill_tpu_torch.poly import ntt
+
+    dev = engine.device
+
+    def kind(step):
+        return ("ntt_product" if step.get("y") is not None
+                else "ntt_forward" if step.get("dif") else "ntt_inverse")
+
+    def launches(fn):
+        """Kernel B's launches (every ntt_* count) in one call of fn."""
+        before = dict(build.LAUNCHES)
+        fn()
+        return sum(v - before[k] for k, v in build.LAUNCHES.items()
+                   if k.startswith("ntt_"))
+
+    def work(logn, m, steps):
+        """(products, bytes) of the passes `steps` on a 2^logn array whose
+        first pass reads m rows: n/2 a stage, n a product by y or by the
+        scale; each input row, twiddle entry and output row once."""
+        n = 1 << logn
+        products, rows = 0, m + n
+        for st in steps:
+            stages = st["s"] * ((1 if st.get("dif") else 0)
+                                + (1 if st.get("dit") else 0))
+            products += stages * n // 2
+            products += n * ((st.get("y") is not None)
+                             + (st.get("scale") is not None))
+            rows += n * (st.get("y") is not None)
+            rows += sum(1 << b for b in range(st["b0"], st["b0"] + st["s"]))
+        return products, rows * FE
+
+    a, b = rand_fr(big), rand_fr(big)
+    logn = (2 * big - 2).bit_length()
+    n = 1 << logn
+    passes = ntt.plan(logn)
+    ntt.TABLES.clear()
+    tw = ntt.twiddle_table(logn, dev)
+    errs = dict.fromkeys(("ntt_forward", "ntt_product", "ntt_inverse"), 0)
+    errs["ntt_twiddles"] = tensor_err(
+        tw, ntt.twiddle_table_plain(logn, dev))
+    fa = ntt.chain(a, logn, ntt.forward_steps(passes), tw, False)
+    chains = ((a, ntt.forward_steps(passes)),
+              (b, ntt.product_steps(passes, fa, logn)))
+    for x, steps in chains:
+        src, valid = x, x.shape[0]
+        got = torch.empty((n, fd.NLIMB), dtype=torch.int32, device=dev)
+        want = torch.empty_like(got)
+        for st in steps:
+            ntt.pass_plain(src, want, valid, logn, tw=tw, **st)
+            ntt.pass_cuda(src, got, valid, logn, tw=tw, **st)
+            errs[kind(st)] = max(errs[kind(st)], tensor_err(got, want))
+            src, valid = got, n
+    prod = ntt.poly_mul(a, b)
+    check(torch.equal(prod, got), "kernel B's launches differ from poly_mul")
+    small = fd.to_ints(ntt.poly_mul(a[:64], b[:64])[:127])
+    host = engine.host
+    want = host.poly_mul(host.vec_from_ints(fd.to_ints(a[:64])),
+                         host.vec_from_ints(fd.to_ints(b[:64])))
+    check(small == [int(v) for v in want],
+          "kernel B's product differs from the host product")
+    h = ntt.poly_mul(a, torch.flip(b, [0]))
+    errs["ntt_s_fold"] = tensor_err(ntt.s_fold(h, big),
+                                    ntt.s_fold_plain(h, big))
+    check(not any(errs.values()),
+          f"kernel B disagrees with its plain twins: {errs}")
+
+    x = prod.clone()
+    fwd = ntt.forward_steps(passes)
+    prod_step = ntt.product_steps(passes, fa, logn)[len(passes) - 1]
+    inv = ntt.inverse_steps(passes[:-1])
+
+    def passes_ms(steps, plain=False):
+        run = ntt.pass_plain if plain else ntt.pass_cuda
+        return cuda_ms(lambda: [run(x, x, n, logn, tw=tw, **st)
+                                for st in steps], reps=1 if plain else 3)
+
+    times = dict(
+        ntt_forward=(passes_ms(fwd), passes_ms(fwd, True)),
+        ntt_product=(passes_ms([prod_step]), passes_ms([prod_step], True)),
+        ntt_inverse=(passes_ms(inv), passes_ms(inv, True)),
+        ntt_s_fold=(cuda_ms(lambda: ntt.s_fold(h, big)),
+                    cuda_ms(lambda: ntt.s_fold_plain(h, big), reps=1)),
+        ntt_twiddles=(cuda_ms(lambda: ntt.twiddle_table_cuda(logn, dev)),
+                      cuda_ms(lambda: ntt.twiddle_table_plain(logn, dev),
+                              reps=1)))
+    product_ms = cuda_ms(lambda: ntt.poly_mul(a, b))
+    product_launches = launches(lambda: ntt.poly_mul(a, b))
+    check(product_launches == 3 * len(passes) - 1,
+          f"a 2^{logn}-point product took {product_launches} launches")
+    product_plain_ms = cuda_ms(lambda: ntt.poly_mul(a, b, plain=True),
+                               reps=1)
+    del x, h, fa, prod, got, want
+
+    # the 2^20-row prove's largest product, timed
+    mb = 1 << (BIG_LOG2_ROWS + 2)
+    lb = mb.bit_length()
+    nb = 1 << lb
+    ab, bb = uniform_scalars(mb, dev, 77), uniform_scalars(mb, dev, 78)
+    bpasses = ntt.plan(lb)
+    twb = ntt.twiddle_table(lb, dev)
+    xb = ntt.chain(ab, lb, ntt.forward_steps(bpasses), twb, False)
+    big_fwd = {}
+    for i, st in enumerate(ntt.forward_steps(bpasses)):
+        src, valid = (ab, mb) if i == 0 else (xb, nb)
+        big_fwd[f"bits {st['b0']}-{st['b0'] + st['s'] - 1}"] = cuda_ms(
+            lambda: ntt.pass_cuda(src, xb, valid, lb, tw=twb, **st))
+    large = dict(
+        forward_ms=cuda_ms(lambda: ntt.chain(
+            ab, lb, ntt.forward_steps(bpasses), twb, False)),
+        forward_bound_ms=bound(card, *work(
+            lb, mb, ntt.forward_steps(bpasses)))["bound_ms"],
+        forward_launches=launches(lambda: ntt.chain(
+            ab, lb, ntt.forward_steps(bpasses), twb, False)),
+        forward_pass_ms=big_fwd,
+        product_ms=cuda_ms(lambda: ntt.poly_mul(ab, bb)),
+        product_bound_ms=bound(card, 3 * (nb // 2) * lb + 2 * nb,
+                               (2 * mb + 2 * nb) * FE)["bound_ms"],
+        product_launches=launches(lambda: ntt.poly_mul(ab, bb)))
+    check(large["forward_launches"] == len(bpasses) <= 4
+          and large["product_launches"] == 3 * len(bpasses) - 1,
+          f"the 2^{lb}-point transform and product took "
+          f"{large['forward_launches']} and {large['product_launches']} "
+          f"launches")
+    large["s_polynomial_ms"] = cuda_ms(
+        lambda: engine.s_polynomial(TVec(ab), TVec(bb)))
+    del ab, bb, xb
+    log(f"kernel B: exact; 2^{lb}-point transform {large['forward_ms']:.3f} "
+        f"ms in {large['forward_launches']} launches (bound "
+        f"{large['forward_bound_ms']:.3f}); 2^{BIG_LOG2_ROWS + 2} x "
+        f"2^{BIG_LOG2_ROWS + 2} product {large['product_ms']:.3f} ms "
+        f"(bound {large['product_bound_ms']:.3f}), S polynomial "
+        f"{large['s_polynomial_ms']:.3f} ms")
+
+    src = "quill_tpu_torch/csrc/ntt.cu"
+    body = "quill_tpu/poly/ntt8.py:135 (_ntt_body)"
+    chain = "quill_tpu/poly/ntt.py:196 (ntt_chunks)"
+    shape = f"2^18 x 2^18 product (transforms of 2^{logn} points)"
+    out = []
+
+    def rec(name, replaces, products, nbytes, what, **kw):
+        ms, plain_ms = times[name]
+        out.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            shape=f"{what}, {shape}", max_abs_err=errs[name], ms=ms,
+            plain_ms=plain_ms, **bound(card, products, nbytes),
+            library_ms=None, **kw))
+        log(f"kernel B {name}: {ms:.3f} ms vs plain {plain_ms:.3f} ms "
+            f"(bound {out[-1]['bound_ms']:.4f})")
+
+    rec("ntt_forward", f"{body}; {chain}", *work(logn, big, fwd),
+        f"a forward transform, {len(fwd)} launches",
+        big_shape=f"a forward transform of 2^{lb} points",
+        **{f"big_{k}": v for k, v in large.items() if k.startswith("forward")})
+    rec("ntt_product",
+        f"{body}; quill_tpu/poly/ntt.py:294 (poly_mul_ntt's product and "
+        f"the 1/N scale)", *work(logn, n, [prod_step]),
+        "the fused product pass, 1 launch",
+        poly_mul_ms=product_ms, poly_mul_plain_ms=product_plain_ms,
+        poly_mul_bound_ms=bound(card, 3 * (n // 2) * logn + 2 * n,
+                                (2 * big + 2 * n) * FE)["bound_ms"],
+        poly_mul_launches=product_launches,
+        big_poly_mul_shape=f"2^{BIG_LOG2_ROWS + 2} x 2^{BIG_LOG2_ROWS + 2}",
+        big_poly_mul_ms=large["product_ms"],
+        big_poly_mul_bound_ms=large["product_bound_ms"],
+        big_poly_mul_launches=large["product_launches"])
+    rec("ntt_inverse", f"{body}; {chain} (inverse)", *work(logn, n, inv),
+        f"the inverse passes after the product pass, {len(inv)} launches")
+    rec("ntt_s_fold", "quill_tpu/engine/device.py:864 (s_polynomial, XLA)",
+        0, 3 * (big - 1) * FE, "S[k] = h[m + k] + h[m - 2 - k]",
+        big_s_polynomial_ms=large["s_polynomial_ms"])
+    # row b is entry j * 2^(logn-1-b) of the top row: the least work is
+    # the top row's 2^(logn-1) products and one write of the table
+    rec("ntt_twiddles", "quill_tpu/poly/ntt.py:58 (_stage_twiddles, "
+        "host)", 1 << (logn - 1), ntt.tw_rows(logn) * FE,
+        f"the twiddle table of rows b < {logn}")
+    return out
 
 
 def v6_kernels(kzg, kzg_big, card):
@@ -937,7 +1092,7 @@ def profile_prove(hp, witness):
     log(f"profile: wall {wall:.3f}s, device busy {busy_us / 1e6:.3f}s "
         f"({100 * busy_us / 1e6 / wall:.1f}%)")
     rows.sort(key=lambda e: -e.self_device_time_total)
-    ours = ("sumcheck_", "ntt_stage", "bucket_", "pt_add", "tree_",
+    ours = ("sc_", "ntt_", "bucket_", "pt_add", "tree_",
             "seg_scan", "level0_", "mont_mul_")
     for i, e in enumerate(rows):
         if i < 12 or e.key.startswith(ours):
@@ -1018,6 +1173,7 @@ def prove_path(engine, circuit, witness, make_kzg, tag: str):
 
     from quill_tpu_torch.kernels import build
     from quill_tpu_torch.pcs.mlpcs import MultilinearPCS
+    from quill_tpu_torch.poly import ntt
     from quill_tpu_torch.proof import hyperplonk
     from quill_tpu_torch.proof.hyperplonk import HyperPlonk, TraceWitness
     from quill_tpu_torch.utils.profiling import metrics
@@ -1026,6 +1182,8 @@ def prove_path(engine, circuit, witness, make_kzg, tag: str):
     phases = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # every twiddle table is made in the path, as every CRS is
+    ntt.TABLES.clear()
     build.reset_counts()
     engine.msm_counts = dict.fromkeys(engine.msm_counts, 0)
     engine.quotient_batches = {}
@@ -1063,7 +1221,8 @@ def prove_path(engine, circuit, witness, make_kzg, tag: str):
     top = sorted(spans.items(), key=lambda kv: -kv[1]["total_sec"])
     log(f"{tag} host spans (utils/profiling): " + json.dumps(dict(top[:14])))
     log(f"{tag} kzg spans: " + json.dumps(
-        {k: spans.get(k) for k in ("kzg/quotient", "kzg/open_msm")}))
+        {k: spans.get(k) for k in ("kzg/quotient", "kzg/open_msm",
+                                   "mlpcs/s_poly")}))
     return dict(data=data, digest=digest, launches=launches, routes=routes,
                 hp=hp, pcs=pcs)
 

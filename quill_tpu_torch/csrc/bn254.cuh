@@ -302,6 +302,30 @@ QHD void fe_store(uint32_t* p, const Fe& a) {
   for (int i = 0; i < 8; ++i) p[i] = a.v[i];
 }
 
+// one field element as two 16-byte accesses on the card (rows are 32 bytes
+// and the buffers 16-byte aligned); plain words on the host
+QHD Fe fe_load16(const uint32_t* p) {
+#ifdef __CUDA_ARCH__
+  const uint4 lo = reinterpret_cast<const uint4*>(p)[0];
+  const uint4 hi = reinterpret_cast<const uint4*>(p)[1];
+  Fe r;
+  r.v[0] = lo.x; r.v[1] = lo.y; r.v[2] = lo.z; r.v[3] = lo.w;
+  r.v[4] = hi.x; r.v[5] = hi.y; r.v[6] = hi.z; r.v[7] = hi.w;
+  return r;
+#else
+  return fe_load(p);
+#endif
+}
+
+QHD void fe_store16(uint32_t* p, const Fe& a) {
+#ifdef __CUDA_ARCH__
+  reinterpret_cast<uint4*>(p)[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  reinterpret_cast<uint4*>(p)[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
+#else
+  fe_store(p, a);
+#endif
+}
+
 QHD G1P g1_load(const uint32_t* p) {  // 24 words: x, y, z
   G1P r;
   r.x = fe_load(p);

@@ -10,8 +10,10 @@
 
 #include "bn254.cuh"
 #include "bucket.cuh"
+#include "ntt.cuh"
 #include "quotient.cuh"
 #include "seg_scan.cuh"
+#include "sumcheck.cuh"
 
 using namespace bn254;
 
@@ -124,6 +126,40 @@ static void block_combine_host(const G1P* a, const G1P* S, long nb, int lg,
     for (long t = 0; t < h; ++t) x[t] = g1_add(x[t], x[t + h]);
   g1_store(X, x[0]);
   if (Y != nullptr) g1_store(Y, suf[0]);
+}
+
+// a tile or a thread's slots as one array (the kernels keep them in shared
+// memory)
+struct HostFes {
+  Fe* v;
+  Fe get(int e) const { return v[e]; }
+  void set(int e, const Fe& a) const { v[e] = a; }
+};
+
+// Kernel A's threads for NT points: thread x of block b strides over the
+// pairs a warp at a time, as sc_round_kernel does; acc gets each thread's
+// NT sums.
+template <int NT>
+void sc_threads(const ScParams& p, int slots, long blocks, long block,
+                std::vector<Fe>& acc) {
+  const Fe r = fe_load(p.r);
+  std::vector<Fe> sv(slots > 0 ? slots : 1);
+  HostFes sl{sv.data()};
+  acc.assign(blocks * block * NT, fe_zero<FrM>());
+  for (long b = 0; b < blocks; ++b)
+    for (long x = 0; x < block; ++x) {
+      Fe* a = &acc[(b * block + x) * NT];
+      for (long long m = b * block + x; m < p.n_pairs; m += blocks * block) {
+        sc_load_pair(p, m, r, sl);
+        if (p.fold)
+          for (int i = 0; i < p.k; ++i) {
+            fe_store(p.out[i] + 8 * (2 * m), sl.get(i));
+            fe_store(p.out[i] + 8 * (2 * m + 1),
+                     fe_add<FrM>(sl.get(i), sl.get(p.k + i)));
+          }
+        sc_accumulate<NT>(p, sl, a);
+      }
+    }
 }
 
 extern "C" {
@@ -329,5 +365,100 @@ int q_bucket_reduce_blocked(const uint32_t* buckets, long nwin, long nb,
   }
   return 0;
 }
+
+// Kernel B's pass (csrc/ntt.cu: ntt_pass_kernel) emulated tile by tile:
+// load (rows at or past `valid` are zero), the forward stages of ntt.cuh on
+// bits b0 + s - 1 down to b0, the products by y[i] and by scale (either may
+// be NULL), the inverse stages up, store.  dst may be src.
+void q_ntt_pass_blocked(const uint32_t* src, uint32_t* dst, long valid,
+                        const uint32_t* y, const uint32_t* tw, int logn,
+                        int b0, int s, int logc, int dif, int dit,
+                        const uint32_t* scale) {
+  const NttPass p{logn, b0, s, logc};
+  const int tile = ntt_tile_size(p);
+  std::vector<Fe> buf(tile);
+  HostFes t{buf.data()};
+  for (long long g = 0; g < ntt_tiles(p); ++g) {
+    for (int e = 0; e < tile; ++e) {
+      const long long i = ntt_global(p, g, e);
+      buf[e] = i < valid ? fe_load(src + 8 * i) : fe_zero<FrM>();
+    }
+    if (dif)
+      for (int q = s - 1; q >= 0; --q)
+        for (int k = 0; k < tile / 2; ++k) ntt_bfly_dif(t, p, tw, g, q, k);
+    for (int e = 0; e < tile; ++e) {
+      if (y != nullptr)
+        buf[e] = fe_mul<FrM>(buf[e], fe_load(y + 8 * ntt_global(p, g, e)));
+      if (scale != nullptr) buf[e] = fe_mul<FrM>(buf[e], fe_load(scale));
+    }
+    if (dit)
+      for (int q = 0; q < s; ++q)
+        for (int k = 0; k < tile / 2; ++k) ntt_bfly_dit(t, p, tw, g, q, k);
+    for (int e = 0; e < tile; ++e)
+      fe_store(dst + 8 * ntt_global(p, g, e), buf[e]);
+  }
+}
+
+// Kernel B's twiddle table (ntt_twiddles_kernel): rows b < logn from roots
+// (29 x 8 words, roots[m] of order 2^m).
+void q_ntt_twiddles(uint32_t* tw, int logn, const uint32_t* roots) {
+  std::vector<Fe> w(29);
+  for (int m = 0; m < 29; ++m) w[m] = fe_load(roots + 8 * m);
+  const Fe* rt = w.data();
+  for (long long idx = 0; idx < ntt_tw_row(logn); ++idx) {
+    const int b = ntt_tw_row_of(idx);
+    fe_store(tw + 8 * idx, ntt_twiddle(rt, b, idx - ntt_tw_row(b)));
+  }
+}
+
+// Kernel A (csrc/sumcheck_round.cu) emulated: `blocks` blocks of `block`
+// threads (a multiple of 32) over the pairs (sc_threads); each warp's NT
+// sums by the xor tree of its shuffles, the warps in order, then the
+// partials launch (thread x sums blocks x, x + 128, ..., then a tree over
+// 128 threads).  out: (nt, 8) Montgomery sums; the folded rows go to
+// p->out.  Returns -1 outside the kernel's limits.
+int q_sumcheck_round_blocked(const ScParams* p, int nt, int slots,
+                             long blocks, long block, uint32_t* out) {
+  if (nt < 1 || nt > SC_MAX_T || block % 32 != 0 || p->k > SC_MAX_TABLES ||
+      slots > sc_slots(SC_MAX_TABLES, SC_MAX_STACK))
+    return -1;
+  std::vector<Fe> acc;
+  switch (nt) {
+    case 1: sc_threads<1>(*p, slots, blocks, block, acc); break;
+    case 2: sc_threads<2>(*p, slots, blocks, block, acc); break;
+    case 3: sc_threads<3>(*p, slots, blocks, block, acc); break;
+    case 4: sc_threads<4>(*p, slots, blocks, block, acc); break;
+    case 5: sc_threads<5>(*p, slots, blocks, block, acc); break;
+    case 6: sc_threads<6>(*p, slots, blocks, block, acc); break;
+    case 7: sc_threads<7>(*p, slots, blocks, block, acc); break;
+    default: sc_threads<8>(*p, slots, blocks, block, acc); break;
+  }
+  for (int t = 0; t < nt; ++t) {
+    std::vector<Fe> part(blocks), sh(128, fe_zero<FrM>());
+    for (long b = 0; b < blocks; ++b) {
+      Fe total = fe_zero<FrM>();
+      for (long w = 0; w < block / 32; ++w) {
+        Fe v[32];
+        for (int l = 0; l < 32; ++l)
+          v[l] = acc[(b * block + 32 * w + l) * nt + t];
+        for (int d = 16; d > 0; d >>= 1) {
+          Fe nv[32];
+          for (int l = 0; l < 32; ++l) nv[l] = fe_add<FrM>(v[l], v[l ^ d]);
+          for (int l = 0; l < 32; ++l) v[l] = nv[l];
+        }
+        total = w == 0 ? v[0] : fe_add<FrM>(total, v[0]);
+      }
+      part[b] = total;
+    }
+    for (long b = 0; b < blocks; ++b)
+      sh[b % 128] = fe_add<FrM>(sh[b % 128], part[b]);
+    for (int s = 64; s > 0; s >>= 1)
+      for (int x = 0; x < s; ++x) sh[x] = fe_add<FrM>(sh[x], sh[x + s]);
+    fe_store(out + 8 * t, sh[0]);
+  }
+  return 0;
+}
+
+long q_sumcheck_params_size() { return (long)sizeof(ScParams); }
 
 }  // extern "C"

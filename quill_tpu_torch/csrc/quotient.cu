@@ -112,8 +112,8 @@ quot_scan_kernel(const QuotJobs J, const uint32_t* __restrict__ pows,
                       J.out[j]);
   Fe total;
   const Fe carry = block_excl_scan(acc, &total);
-  qt_store(runc + (g * QUOT_BLOCK + threadIdx.x) * 8, carry);
-  if (threadIdx.x == 0) qt_store(tilet + g * 8, total);
+  fe_store16(runc + (g * QUOT_BLOCK + threadIdx.x) * 8, carry);
+  if (threadIdx.x == 0) fe_store16(tilet + g * 8, total);
 }
 
 __global__ void __launch_bounds__(QUOT_BLOCK)
@@ -129,16 +129,16 @@ quot_tiles_kernel(const QuotJobs J, uint32_t* __restrict__ tilet,
   Fe acc = fe_zero<FrM>();
 #pragma unroll 1
   for (long long k = lo; k < hi; ++k)
-    acc = fe_add<FrM>(acc, qt_load(t + 8 * k));
+    acc = fe_add<FrM>(acc, fe_load16(t + 8 * k));
   Fe total;
   Fe carry = block_excl_scan(acc, &total);
 #pragma unroll 1
   for (long long k = lo; k < hi; ++k) {
-    const Fe v = qt_load(t + 8 * k);
-    qt_store(t + 8 * k, carry);
+    const Fe v = fe_load16(t + 8 * k);
+    fe_store16(t + 8 * k, carry);
     carry = fe_add<FrM>(carry, v);
   }
-  if (threadIdx.x == 0) qt_store(ys + 8 * j, total);
+  if (threadIdx.x == 0) fe_store16(ys + 8 * j, total);
 }
 
 __global__ void __launch_bounds__(QUOT_BLOCK)
@@ -152,9 +152,10 @@ quot_finish_kernel(const QuotJobs J, const uint32_t* __restrict__ pows,
   run_of(J, j, g, r, &lo, &hi);
   if (lo >= hi) return;
   const long long t = g * QUOT_BLOCK + threadIdx.x;
-  const Fe carry = fe_add<FrM>(qt_load(tilet + g * 8), qt_load(runc + t * 8));
+  const Fe carry =
+      fe_add<FrM>(fe_load16(tilet + g * 8), fe_load16(runc + t * 8));
   qt_run_finish(J.out[j], pows + ((long long)j * 2 + 1) * QUOT_LOG * 8, lo, hi,
-                carry, qt_load(ys + 8 * j));
+                carry, fe_load16(ys + 8 * j));
 }
 
 // c[j], out[j]: (n[j], 8) words, 16-byte aligned, n[j] >= 1; pows: (jobs, 2,

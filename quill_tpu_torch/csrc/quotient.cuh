@@ -22,30 +22,6 @@ namespace bn254 {
 constexpr int QUOT_BLOCK = 128;  // runs (threads) a tile
 constexpr int QUOT_LOG = 32;     // rows of a power table: x^(2^i), i < 32
 
-// one Fr element; on the card as two 16-byte loads (rows are 32 bytes and
-// the buffers 16-byte aligned)
-QHD Fe qt_load(const uint32_t* p) {
-#ifdef __CUDA_ARCH__
-  const uint4 lo = reinterpret_cast<const uint4*>(p)[0];
-  const uint4 hi = reinterpret_cast<const uint4*>(p)[1];
-  Fe r;
-  r.v[0] = lo.x; r.v[1] = lo.y; r.v[2] = lo.z; r.v[3] = lo.w;
-  r.v[4] = hi.x; r.v[5] = hi.y; r.v[6] = hi.z; r.v[7] = hi.w;
-  return r;
-#else
-  return fe_load(p);
-#endif
-}
-
-QHD void qt_store(uint32_t* p, const Fe& a) {
-#ifdef __CUDA_ARCH__
-  reinterpret_cast<uint4*>(p)[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);
-  reinterpret_cast<uint4*>(p)[1] = make_uint4(a.v[4], a.v[5], a.v[6], a.v[7]);
-#else
-  fe_store(p, a);
-#endif
-}
-
 // x^e from tab[i] = x^(2^i) (QUOT_LOG rows of 8 words), e < 2^QUOT_LOG
 QHD Fe qt_pow(const uint32_t* tab, unsigned long long e) {
   Fe r = fe_one<FrM>();
@@ -61,13 +37,13 @@ QHD Fe qt_run_scan(const uint32_t* c, const uint32_t* tab, long long lo,
                    long long hi, uint32_t* out) {
   const Fe x = fe_load(tab);
   Fe pw = qt_pow(tab, (unsigned long long)lo);
-  Fe acc = fe_mul<FrM>(qt_load(c + 8 * lo), pw);
-  qt_store(out + 8 * lo, acc);
+  Fe acc = fe_mul<FrM>(fe_load16(c + 8 * lo), pw);
+  fe_store16(out + 8 * lo, acc);
 #pragma unroll 1
   for (long long k = lo + 1; k < hi; ++k) {
     pw = fe_mul<FrM>(pw, x);
-    acc = fe_add<FrM>(acc, fe_mul<FrM>(qt_load(c + 8 * k), pw));
-    qt_store(out + 8 * k, acc);
+    acc = fe_add<FrM>(acc, fe_mul<FrM>(fe_load16(c + 8 * k), pw));
+    fe_store16(out + 8 * k, acc);
   }
   return acc;
 }
@@ -81,8 +57,8 @@ QHD void qt_run_finish(uint32_t* out, const uint32_t* itab, long long lo,
 #pragma unroll 1
   for (long long k = lo; k < hi; ++k) {
     if (k > lo) pw = fe_mul<FrM>(pw, xi);
-    const Fe p = fe_add<FrM>(qt_load(out + 8 * k), carry);
-    qt_store(out + 8 * k, fe_mul<FrM>(fe_sub<FrM>(y, p), pw));
+    const Fe p = fe_add<FrM>(fe_load16(out + 8 * k), carry);
+    fe_store16(out + 8 * k, fe_mul<FrM>(fe_sub<FrM>(y, p), pw));
   }
 }
 

@@ -239,7 +239,7 @@ class TorchEngine:
         return self._wrap(fd.from_w16(out))
 
     def sumcheck_messages(self, tables, expr, degree: int) -> list[int]:
-        used = compile_expr(expr).used
+        used = sumcheck.prepare(expr).prog.used
         if not any(self._dev(tables[i]) for i in used):
             return self.host.sumcheck_messages(tables, expr, degree)
         ins = [self._tensor(tables[i]) for i in used]
@@ -254,7 +254,7 @@ class TorchEngine:
         """Fold every used table at r_prev and compute this round's
         messages in one kernel A launch; folded tables below the device
         size move to the host."""
-        used = compile_expr(expr).used
+        used = sumcheck.prepare(expr).prog.used
         new_tables = list(tables)
         if (any(self._dev(tables[i]) for i in used)
                 and self.vec_len(tables[used[0]]) % 4 == 0):
@@ -310,10 +310,7 @@ class TorchEngine:
         n = max(self.vec_len(p1), self.vec_len(p2))
         f = self._tensor(self.pad(p1, n))
         g = self._tensor(self.pad(p2, n))
-        h = ntt.poly_mul(f, torch.flip(g, [0]))
-        top = h[n:2 * n - 1]
-        low = torch.flip(h[:n - 1], [0])
-        return self._wrap(fd.add(top, low, FR))
+        return self._wrap(ntt.s_polynomial(f, g))
 
     # -- curve ----------------------------------------------------------------
 

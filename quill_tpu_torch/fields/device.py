@@ -311,6 +311,13 @@ def mul(a, b, field: Field = FR):
     return from_w16(w_mul(to_w16(a), to_w16(b), field))
 
 
+def mont_words(x: int, field: Field = FR) -> list[int]:
+    """A field element's Montgomery form as NLIMB uint32 words, low first
+    (a kernel argument passed by value)."""
+    v = field.mont(x)
+    return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(NLIMB)]
+
+
 def const(x: int, field: Field, device, montgomery: bool = True):
     """A constant as an (8,) int32 storage row."""
     return from_w16(w_const(x, field, device, montgomery))

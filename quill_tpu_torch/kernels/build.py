@@ -41,7 +41,8 @@ LIBS = {
     "field": "field.cu",
     "quotient": "quotient.cu",
 }
-HEADERS = ["bn254.cuh", "seg_scan.cuh", "quotient.cuh", "bucket.cuh"]
+HEADERS = ["bn254.cuh", "seg_scan.cuh", "quotient.cuh", "bucket.cuh",
+           "ntt.cuh", "sumcheck.cuh"]
 HOST_SOURCE = "bn254_host.cpp"
 # host library -> C source under native/
 NATIVE_LIBS = {
@@ -57,7 +58,11 @@ GCC_FLAGS = ["-O3", "-fPIC", "-shared"]
 # kernel name -> launches since the last reset
 LAUNCHES = {
     "sumcheck_round": 0,     # kernel A
-    "ntt_stage": 0,          # kernel B
+    "ntt_forward": 0,        # kernel B: a forward pass
+    "ntt_product": 0,        # kernel B: the fused product pass
+    "ntt_inverse": 0,        # kernel B: an inverse pass
+    "ntt_s_fold": 0,         # kernel B: the S polynomial's fold
+    "ntt_twiddles": 0,       # kernel B: the twiddle table (once per size)
     "msm_bucket_sum": 0,     # kernel C
     "msm_bucket_reduce": 0,  # kernel D
     "msm5_pt_add": 0,        # kernel E

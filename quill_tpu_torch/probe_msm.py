@@ -4,7 +4,7 @@ split into its steps on the card.
     python -m quill_tpu_torch.probe_msm [--sweep] [--points LOG2 ...]
 
 1. builds `csrc/msm.cu` with `nvcc -Xptxas -v` and prints ptxas's
-   registers and spills for every kernel in it;
+   registers, stack frame and spills for every kernel in it;
 2. makes the device CRS of the largest size asked for (`fixed_base`,
    kernel J) and uniform scalars from a seed;
 3. for each size (default 2^18 and 2^20 points), times every step of one
@@ -41,15 +41,15 @@ SWEEP_K = (16, 32, 64, 128, 256)
 HOST_CHECK_POINTS = 1 << 12   # the host MSM at this size: seconds
 
 
-def compile_msm():
-    """msm.cu built with nvcc -Xptxas -v -> {kernel: {registers, spill
-    bytes}}."""
+def ptxas(lib: str = "msm") -> dict:
+    """The CUDA library `lib` (build.LIBS) built with nvcc -Xptxas -v ->
+    {kernel: {registers, stack frame and spill bytes}}."""
     out_dir = build.build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / "libprobe_msm.so"
+    so = out_dir / f"libprobe_{lib}.so"
     res = subprocess.run(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-         str(build.CSRC), "-o", str(so), str(build.CSRC / build.LIBS["msm"])],
+         str(build.CSRC), "-o", str(so), str(build.CSRC / build.LIBS[lib])],
         capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{res.stderr}")
@@ -61,15 +61,19 @@ def compile_msm():
             continue
         text = " ".join(lines[i:i + 4])
         regs = re.search(r"Used (\d+) registers", text)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", text)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", text)
         name = m.group(1)
         mangled = re.match(r"_Z(\d+)", name)
         if mangled:
-            name = name[mangled.end():mangled.end() + int(mangled.group(1))]
+            end = mangled.end() + int(mangled.group(1))
+            arg = re.match(r"ILi(\d+)E", name[end:])   # template <int N>
+            name = name[mangled.end():end] + (f"<{arg.group(1)}>" if arg
+                                              else "")
         usage[name] = dict(registers=int(regs.group(1)),
-                           spill_store_bytes=int(spill.group(1)),
-                           spill_load_bytes=int(spill.group(2)))
+                           stack_frame_bytes=int(frame.group(1)),
+                           spill_store_bytes=int(frame.group(2)),
+                           spill_load_bytes=int(frame.group(3)))
     return usage
 
 
@@ -152,7 +156,7 @@ def run(log2s, do_sweep: bool) -> dict:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
-    res = dict(card=card, ptxas=compile_msm(), sizes={})
+    res = dict(card=card, ptxas=ptxas(), sizes={})
     print(f"ptxas: {json.dumps(res['ptxas'])}", flush=True)
     rng = random.Random(3)
     n_max = 1 << max(log2s)

@@ -39,6 +39,16 @@ def _rand(n, dev):
     return fd.from_ints([RNG.randrange(R) for _ in range(n)], fd.FR, dev)
 
 
+def _uniform(n, dev, seed):
+    """n Fr elements below 2^252 made on the card from a seed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    words = torch.randint(0, 256, (n, 32), dtype=torch.uint8, device=dev,
+                          generator=gen).view(torch.int32)
+    words[:, 7] &= 0x0FFFFFFF
+    return fd.to_mont(words, fd.FR)
+
+
 def test_kernel_a_matches_plain(dev):
     expr = (Input(0) * Input(1) - Input(2)) * Input(3) + Const(R - 3)
     tables = [_rand(1 << 12, dev) for _ in range(4)]
@@ -52,9 +62,113 @@ def test_kernel_a_matches_plain(dev):
     assert build.LAUNCHES["sumcheck_round"] == before + 2
 
 
+@pytest.mark.parametrize("degree", range(1, 8))
+def test_kernel_a_degrees_and_deepest(dev, degree):
+    """Degrees 1-7 on an expression at the stack and table limits, and on
+    tables whose pairs do not fill the last warp (n = 2^5 + 4 rows)."""
+    x = [Input(i) for i in range(16)]
+    deep = x[15]
+    for i in reversed(range(15)):
+        deep = x[i] + deep if i % 2 else x[i] * deep
+    for n in (1 << 13, 36):
+        tables = [_rand(n, dev) for _ in range(16)]
+        for r in (None, 4242 + degree):
+            got, gf = sumcheck.round_messages(tables, deep, degree, r)
+            want, wf = sumcheck.round_messages(tables, deep, degree, r,
+                                               plain=True)
+            assert got == want
+            assert all(torch.equal(a, b) for a, b in zip(gf or [], wf or []))
+
+
 def test_kernel_b_matches_plain(dev):
     a, b = _rand(1000, dev), _rand(3000, dev)
     assert torch.equal(ntt.poly_mul(a, b), ntt.poly_mul(a, b, plain=True))
+
+
+@pytest.mark.parametrize("la,lb", [(1, 1), (2, 1), (3, 2), (2047, 3),
+                                   (2049, 2049), (1 << 14, (1 << 14) + 1)])
+def test_kernel_b_odd_lengths(dev, la, lb):
+    a, b = _rand(la, dev), _rand(lb, dev)
+    got = ntt.poly_mul(a, b)
+    assert torch.equal(got, ntt.poly_mul(a, b, plain=True))
+    if la + lb <= 8:
+        xs, ys = fd.to_ints(a), fd.to_ints(b)
+        want = [sum(xs[i] * ys[k - i] for i in range(la) if 0 <= k - i < lb)
+                % R for k in range(la + lb - 1)]
+        assert fd.to_ints(got)[:la + lb - 1] == want
+
+
+def test_kernel_b_passes_match_twins(dev):
+    """Every launch of a 2^20-point product (three passes a transform)
+    against its twin on the same input, the twiddle table against its
+    twin, the S fold against its twin, and inverse o forward = identity."""
+    logn = 20
+    passes = ntt.plan(logn)
+    assert len(passes) == 3
+    tw = ntt.twiddle_table(logn, dev)
+    assert torch.equal(tw[:ntt.tw_rows(logn)],
+                       ntt.twiddle_table_plain(logn, dev))
+    a, b = _rand(1 << 19, dev), _rand((1 << 19) - 5, dev)
+    fa = ntt.chain(a, logn, ntt.forward_steps(passes), tw, False)
+    steps = ntt.product_steps(passes, fa, logn)
+    src, valid = b, b.shape[0]
+    for step in steps:
+        got = torch.empty((1 << logn, fd.NLIMB), dtype=torch.int32,
+                          device=dev)
+        want = torch.empty_like(got)
+        kw = dict(step, y=fa if "y" in step else None)
+        ntt.pass_cuda(src, got, valid, logn, tw=tw, **kw)
+        ntt.pass_plain(src, want, valid, logn, tw=tw, **kw)
+        assert torch.equal(got, want), step
+        src, valid = got, 1 << logn
+    h = ntt.poly_mul(a, b)
+    assert torch.equal(ntt.s_fold(h, 1 << 19), ntt.s_fold_plain(h, 1 << 19))
+    for lg in (0, 1, 5, 11, 12, 17, 21):
+        x = _uniform(1 << lg, dev, lg)
+        assert torch.equal(ntt.ntt(ntt.ntt(x), inverse=True), x)
+
+
+def test_kernel_b_runs_no_plain_op(dev):
+    """ntt.poly_mul on the card launches kernel B's passes and nothing
+    else (the profiler's device kernels), 3 + 3 + 2 at 2^23 points."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ntt.TABLES.clear()
+    a, b = _uniform(1 << 22, dev, 1), _uniform(1 << 22, dev, 2)
+    ntt.poly_mul(a[:8], b[:8])
+    torch.cuda.synchronize()
+    build.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ntt.poly_mul(a, b)
+        torch.cuda.synchronize()
+    kernels = {e.key for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    assert kernels and all(k.startswith("ntt_") for k in kernels), kernels
+    counts = {k: v for k, v in build.LAUNCHES.items() if v}
+    assert counts == {"ntt_forward": 5, "ntt_product": 1,
+                      "ntt_inverse": 2, "ntt_twiddles": 1}, counts
+    assert torch.equal(ntt.poly_mul(a[:4096], b[:4096]),
+                       ntt.poly_mul(a[:4096], b[:4096], plain=True))
+
+
+def test_kernel_a_copies_nothing_to_the_card(dev):
+    """A round's only memcpy is the messages' readback."""
+    from torch.profiler import ProfilerActivity, profile
+
+    expr = (Input(0) * Input(1) - Input(2)) * Input(3) + Const(R - 3)
+    tables = [_rand(1 << 12, dev) for _ in range(4)]
+    sumcheck.round_messages(tables, expr, 3, 777)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sumcheck.round_messages(tables, expr, 3, 778)
+        sumcheck.round_messages(tables, expr, 3)
+        torch.cuda.synchronize()
+    copies = [e.key for e in prof.key_averages()
+              if e.key.startswith("Memcpy")]      # the device's copies
+    assert copies and all("DtoH" in k for k in copies), copies
 
 
 @pytest.mark.parametrize("skewed", [False, True])

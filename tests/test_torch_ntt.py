@@ -1,6 +1,8 @@
-"""NTT products through TorchEngine (kernel B's plain twin on the CPU)
-against HostEngine, at unequal lengths.  Transform order is internal to
-the port, so only products are compared."""
+"""NTT products through TorchEngine (kernel B's plain twins on the CPU)
+against HostEngine, at unequal lengths, and the transforms' round trip.
+The forward transform's order is internal (bit-reversed), so only
+products and round trips are compared here (tests/test_torch_ntt_blocked.py
+checks the order)."""
 
 import numpy as np
 import pytest
@@ -56,5 +58,7 @@ def test_ntt_roundtrip_and_twiddles():
     assert fd.to_ints(ntt.ntt(ntt.ntt(t), inverse=True)) == xs
     w = ntt.root_of_unity(256)
     assert pow(w, 256, R) == 1 and pow(w, 128, R) != 1
-    assert fd.to_ints(ntt.twiddles(8, False, "cpu")) == [
-        pow(ntt.root_of_unity(8), k, R) for k in range(4)]
+    # row b = 2 of the table: the powers of the 8th root, j = 0 .. 4
+    row = ntt.twiddle_table(3, "cpu")[ntt.tw_rows(2):ntt.tw_rows(3)]
+    assert fd.to_ints(row) == [
+        pow(ntt.root_of_unity(8), k, R) for k in range(5)]
