@@ -29,8 +29,11 @@ Phases, any failure exits non-zero:
    every launch of kernel B's 2^18 x 2^18 product -- forward, product and
    inverse passes, the twiddle table, the S fold -- and its 2^22 x 2^22
    product timed; kernel M at an open_many batch of each prove, 4 openings
-   of ~2^22 and 8 of ~2^18 coefficients; kernel E's v8 collect mode on one
-   v8 chunk); the 2^18-point MSMs also against the native host MSM; the
+   of ~2^22 and 8 of ~2^18 coefficients; kernel E's shifted basis of one
+   2^16-point chunk at 20 windows of 13 bits and at 16 of 16, of two
+   chunks in one launch at (20, 13) and of 2^18 points at (16, 16), and
+   its doubling at v8's triangle; kernel E's v8 collect mode on one v8
+   chunk); the 2^18-point MSMs also against the native host MSM; the
    small-route MSM of 4 x 2^16 points, v6 MSMs of 2^18 and 2^20 points and
    a v8 MSM of 2^22 points against kernels C and D on the same scalars;
 5. field bench (`python -m quill_tpu_torch.bench_field`): kernel L's
@@ -44,12 +47,15 @@ Phases, any failure exits non-zero:
 8. main path, 2^20 rows, on the CRS of phase 3: preprocess -> prove ->
    serialize_proof -> verify; the proof must have the pinned length and
    sha256, and some MSMs must take v8.
-Each path prints its phases, its kernel launches, its MSMs by route and
+Each path prints its phases, its kernel launches (also split into setup,
+preprocess and prove), its MSMs by route and
 its host spans (`kzg/quotient` and `kzg/open_msm` on a line of their own);
 every kernel must have launched in the CRS build, the field bench or one
 of the paths, kernel M on the 2^16- and the 2^20-row paths, and the v8
-collect on the 2^20-row path.  The line before the last is the per-kernel
-JSON record, the last line the device record.
+collect on the 2^20-row path.  The 2^16-row path's shifted basis is
+kernel E's one launch a call (no E add on that path), and v8's triangle
+one doubling launch and 3 adds a MSM.  The line before the last is the
+per-kernel JSON record, the last line the device record.
 """
 
 import argparse
@@ -83,7 +89,7 @@ QUOT_BATCHES = {
     f"2^{BIG_LOG2_ROWS}-row": [1 << 22] * 2 + [(1 << 22) - 1] * 2,
     f"2^{LOG2_ROWS}-row": ([1 << 18] * 2 + [(1 << 18) - 1] * 2) * 2,
 }
-QUOT_RUNS = (8, 16, 32, 64)
+QUOT_RUNS = (8, 16, 32, 64, 128)
 
 
 # bound model (`bound`): the field products' 32-bit IMADs at the card's
@@ -180,16 +186,17 @@ def max_abs_err(xs, ys) -> int:
     return max((abs(int(a) - int(b)) for a, b in zip(xs, ys)), default=0)
 
 
-def tensor_err(a, b) -> int:
+def tensor_err(a, b, field=None) -> int:
     """0 for equal (n, 8) Montgomery tensors, else the largest difference
-    of their canonical values."""
+    of their canonical values (Fr unless `field` says)."""
     import torch
 
     from quill_tpu_torch.fields import device as fd
 
     if torch.equal(a, b):
         return 0
-    return max_abs_err(fd.to_ints(a), fd.to_ints(b))
+    field = field or fd.FR
+    return max_abs_err(fd.to_ints(a, field), fd.to_ints(b, field))
 
 
 def point_err(p, q) -> int:
@@ -398,42 +405,32 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     # its shifted basis, through kernel E, on the main path.
     own = M.TorchBasis(xy=kzg._basis.xy, inf=kzg._basis.inf,
                        length=kzg._basis.length)
-    pts0, inf0 = msm5.chunk_points(own, 0)
-    n = pts0.shape[0]
-    other = msm5.pt_add(pts0, pts0)
+    n = msm5.CHUNK
+    xy0, inf0 = own.xy[:n], own.inf[:n]
+    pts0 = msm5.base_points(xy0, inf0)
+    other = msm5.pt_dbl(pts0)
     flags = torch.tensor([rng.random() < 0.5 for _ in range(n)],
                          dtype=torch.bool, device=dev)
     err_e = max(points_err(msm5.pt_add(pts0, other),
                            msm5.pt_add_plain(pts0, other)),
                 points_err(msm5.pt_add(pts0, other, flags),
                            msm5.pt_add_plain(pts0, other, flags)))
-    lad_k = msm5.shift_ladder(pts0)
-    lad_p = msm5.shift_ladder(pts0, plain=True)
-    err_e = max(err_e, points_err(lad_k.reshape(-1, 3, fd.NLIMB),
-                                  lad_p.reshape(-1, 3, fd.NLIMB)))
     check(err_e == 0, "kernel E disagrees with its plain twin")
     e_times = dict(
         ms=cuda_ms(lambda: msm5.pt_add(pts0, other)),
         plain_ms=cuda_ms(lambda: msm5.pt_add_plain(pts0, other), reps=1),
         flagged_ms=cuda_ms(lambda: msm5.pt_add(pts0, other, flags)),
         flagged_plain_ms=cuda_ms(
-            lambda: msm5.pt_add_plain(pts0, other, flags), reps=1),
-        ladder_ms=cuda_ms(lambda: msm5.shift_ladder(pts0), reps=1),
-        ladder_plain_ms=cuda_ms(lambda: msm5.shift_ladder(pts0, plain=True),
-                                reps=1))
-    del lad_p
+            lambda: msm5.pt_add_plain(pts0, other, flags), reps=1))
     log(f"kernel E, 2^16 adds: {e_times['ms']:.3f} ms vs plain "
         f"{e_times['plain_ms']:.3f} ms; flagged {e_times['flagged_ms']:.3f} "
-        f"ms; 247-pass ladder {e_times['ladder_ms']:.3f} ms vs plain "
-        f"{e_times['ladder_plain_ms']:.3f} ms")
+        f"ms vs plain {e_times['flagged_plain_ms']:.3f} ms")
     record("msm5_pt_add", "quill_tpu_torch/csrc/msm5.cu",
            "quill_tpu/fields/pallas8.py:475 (_stacked_combine_kernel)",
-           12 * n, 3 * n * PT, shape="2^16 elementwise adds (one pass of "
-           "the shifted basis's 247-pass doubling ladder)", max_abs_err=err_e,
-           **e_times)
-
-    sh = msm5.to_affine(lad_k.reshape(-1, 3, fd.NLIMB))
-    del lad_k
+           12 * n, 3 * n * PT, shape="2^16 elementwise adds",
+           max_abs_err=err_e, **e_times)
+    rec, sh = shifted_basis_kernel(own, card)
+    records.append(rec)
     vecs = [[rng.randrange(R) for _ in range(n)] for _ in range(4)]
     vecs[0][:4] = [0, 1, R - 1, (1 << 13) - 1]
     s_list = [fd.from_ints(v, fd.FR, dev) for v in vecs]
@@ -482,7 +479,7 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     cd_ms = cuda_ms(lambda: [M.msm(bs_cd, t) for t in s_list])
     log(f"4 MSMs of {n} points: small route (one batch) {small_ms:.3f} ms, "
         f"kernels C + D (one at a time) {cd_ms:.3f} ms; equal")
-    for rec in records[-4:]:
+    for rec in records[-5:]:       # E, its shifted basis, F, G, H
         rec["small_route_batch_ms"] = small_ms
         rec["cd_same_4_msms_ms"] = cd_ms
     records += v6_kernels(kzg, kzg_big, card)
@@ -490,6 +487,107 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     records.append(quotient_kernel(dev, rng, card))
     records += v8_kernels(kzg_big, card)
     return records
+
+
+FERMAT_INV = 256 + 110     # products of x^(p-2): squarings, set bits of p-2
+
+
+def shifted_products(nwin: int, wbits: int) -> int:
+    """Field products a point of kernel E's shifted basis, by the kernel's
+    own method: nwin - 1 rounds of wbits doublings of 8 products (algorithm
+    9), Montgomery's trick over its nwin - 1 window points (one product up,
+    two down and two for x and y: 5 each) and one Fermat inversion a
+    thread."""
+    return (nwin - 1) * (8 * wbits + 5) + FERMAT_INV
+
+
+def shifted_least_products(nwin: int, wbits: int, n: int) -> int:
+    """The shifted basis's least work, field products for n points: the
+    cheapest doubling, Jacobian dbl-2009-l (7 products; the first from
+    Z = 1 one fewer, mdbl-2007-bl), and each of the nwin - 1 new window
+    points made affine with one inversion shared by all of them
+    (Montgomery's trick, 3 products a point) and Z^-2, Z^-3, x and y (4).
+    No method that doubles needs fewer."""
+    return n * ((nwin - 1) * (7 * wbits + 7) - 1) + FERMAT_INV
+
+
+def shifted_basis_kernel(own, card):
+    """Kernel E's shifted basis against its plain twin (the doubling ladder
+    and one batch normalisation a chunk), exactly, at the launches the
+    routes make: one 2^16-point chunk of the host CRS at the small route's
+    20 windows of 13 bits and at v6's 16 of 16, two chunks in one launch at
+    (20, 13) (the small route's call on a 2^17-point slice), and v6's
+    whole basis for the 2^16-row prove's largest v6 MSM (V6_POINTS[0]
+    points, one window-major block).  -> (record, the (20, 13) chunk's
+    basis)."""
+    from quill_tpu_torch.ec import msm5, msm6
+    from quill_tpu_torch.fields import device as fd
+
+    def held(n, nwin, wbits, chunk, what):
+        xy, inf = own.xy[:n], own.inf[:n]
+        got = msm5.shifted_basis(xy, inf, nwin, wbits, chunk)
+        want = msm5.shifted_basis_plain(xy, inf, nwin, wbits, chunk)
+        err = tensor_err(got.reshape(-1, fd.NLIMB), want.reshape(-1, fd.NLIMB),
+                         fd.FQ)
+        check(err == 0, f"kernel E's shifted basis ({what}) disagrees with "
+              f"its plain twin")
+        del want
+        return dict(
+            err=err, sh=got,
+            ms=cuda_ms(lambda: msm5.shifted_basis(xy, inf, nwin, wbits,
+                                                  chunk)),
+            plain_ms=cuda_ms(lambda: msm5.shifted_basis_plain(
+                xy, inf, nwin, wbits, chunk), reps=1),
+            **bound(card, shifted_least_products(nwin, wbits, n),
+                    n * (AFF + 1 + nwin * AFF)))
+
+    n, nv = msm5.CHUNK, V6_POINTS[0]
+    res = {}
+    for tag, m, nwin, wbits, chunk in (
+            ("small", n, msm5.NWIN, msm5.WBITS, None),
+            ("v6", n, msm6.NWIN, msm6.WBITS, None),
+            ("small_2", 2 * n, msm5.NWIN, msm5.WBITS, msm5.CHUNK),
+            ("v6_prove", nv, msm6.NWIN, msm6.WBITS, None)):
+        what = (f"{m} points x {nwin} windows of {wbits} bits"
+                + (f", chunks of {chunk}" if chunk else ""))
+        res[tag] = held(m, nwin, wbits, chunk, what)
+        if tag != "small":
+            del res[tag]["sh"]
+        log(f"kernel E shifted basis, {what}: {res[tag]['ms']:.3f} ms vs "
+            f"plain {res[tag]['plain_ms']:.3f} ms (bound "
+            f"{res[tag]['bound_ms']:.3f} ms)")
+    small, v6, two, big = (res["small"], res["v6"], res["small_2"],
+                           res["v6_prove"])
+    rec = dict(
+        name="msm5_shifted_basis", route="cuda",
+        source="quill_tpu_torch/csrc/msm5.cu + quill_tpu_torch/csrc/"
+               "ladder.cuh",
+        replaces="quill_tpu/fields/pallas8.py:475 (_stacked_combine_kernel, "
+                 "one launch a doubling) at quill_tpu/ec/msm3.py:90 "
+                 "(_shift_doubling) and quill_tpu/ec/msm6.py:157 "
+                 "(_shift_doubling16), with quill_tpu/ec/fixed_base.py:158 "
+                 "(_batch_normalize, XLA)",
+        shape=f"one {n}-point CRS chunk, 20 windows of 13 bits (the small "
+              f"route's)",
+        max_abs_err=max(r["err"] for r in res.values()), ms=small["ms"],
+        plain_ms=small["plain_ms"], bound_ms=small["bound_ms"],
+        bound_by=small["bound_by"], library_ms=None,
+        least_products_a_point=shifted_least_products(
+            msm5.NWIN, msm5.WBITS, n) / n,
+        products_a_point=shifted_products(msm5.NWIN, msm5.WBITS),
+        v6_shape=f"one {n}-point CRS chunk, 16 windows of 16 bits",
+        v6_ms=v6["ms"], v6_plain_ms=v6["plain_ms"],
+        v6_bound_ms=v6["bound_ms"],
+        two_chunk_shape=f"{2 * n} points in chunks of {n}, 20 windows of "
+                        f"13 bits (the small route's call on a 2^17-point "
+                        f"slice)",
+        two_chunk_ms=two["ms"], two_chunk_plain_ms=two["plain_ms"],
+        two_chunk_bound_ms=two["bound_ms"],
+        v6_prove_shape=f"{nv} points, 16 windows of 16 bits (the 2^16-row "
+                       f"prove's largest v6 MSM)",
+        v6_prove_ms=big["ms"], v6_prove_plain_ms=big["plain_ms"],
+        v6_prove_bound_ms=big["bound_ms"])
+    return rec, small["sh"]
 
 
 def ntt_kernels(engine, card, big, rand_fr):
@@ -783,8 +881,10 @@ def field_kernel(dev, rng, card):
 def quotient_kernel(dev, rng, card):
     """Kernel M against its plain twin at open_many batches the proves give
     it (`chip_smoke.py` logs every path's batches): QUOT_BATCHES, uniform
-    coefficients and points; the 2^20-row prove's batch also at every run
-    length of QUOT_RUNS."""
+    coefficients and points; both also at every run length of QUOT_RUNS,
+    against the default's output."""
+    import torch
+
     from quill_tpu_torch.engine import quotient as Q
     from quill_tpu_torch.fields.bn254 import R
 
@@ -798,11 +898,17 @@ def quotient_kernel(dev, rng, card):
         err = max([max_abs_err(ys, pys)]
                   + [tensor_err(a, b) for a, b in zip(qs, pqs)])
         check(err == 0, f"kernel M disagrees with its plain twin at {tag}")
-        del qs, pqs
-        # the function's least work: Ruffini's recurrence q_{k-1} = c_k +
-        # x q_k scanned in runs takes 2 products a coefficient (the run's
-        # serial pass, and carry x^j stepped in the fix-up), c read once and
-        # q written once; kernel M's formula does 4 and moves 128 bytes
+        del pqs
+        for r in QUOT_RUNS:
+            rys, rqs = Q.scan(cs, xs, r)
+            check(rys == ys and all(torch.equal(a, b) for a, b in
+                                    zip(rqs, qs)),
+                  f"kernel M at {r} coefficients a thread disagrees at {tag}")
+        del qs, rqs
+        # the function's least work: Horner's rule q_{k-1} = c_k + x q_k,
+        # one product a coefficient, c read once and q written once.
+        # Kernel M, run in parallel, does 2 (each run's recurrence, and
+        # carry x^j stepped in phase 3) and reads c twice
         total = sum(lengths)
         res[tag] = dict(
             shape=f"{len(lengths)} openings of {lengths[0]} or "
@@ -810,15 +916,15 @@ def quotient_kernel(dev, rng, card):
                   f"{tag} prove)",
             err=err, ms=cuda_ms(lambda: Q.scan(cs, xs)),
             plain_ms=cuda_ms(lambda: Q.scan_plain(cs, xs), reps=1),
-            **bound(card, 2 * total, 2 * FE * total))
-        if tag == f"2^{BIG_LOG2_ROWS}-row":
-            res["by_run"] = {r: cuda_ms(lambda r=r: Q.scan(cs, xs, r))
-                             for r in QUOT_RUNS}
+            run=Q.run_for(lengths),
+            by_run={r: cuda_ms(lambda r=r: Q.scan(cs, xs, r))
+                    for r in QUOT_RUNS},
+            **bound(card, total, 2 * FE * total))
         log(f"kernel M, {res[tag]['shape']}: {res[tag]['ms']:.3f} ms vs "
             f"plain {res[tag]['plain_ms']:.3f} ms (bound "
-            f"{res[tag]['bound_ms']:.3f} ms)")
+            f"{res[tag]['bound_ms']:.3f} ms); by coefficients a thread: "
+            + json.dumps(res[tag]["by_run"]))
         del cs
-    log(f"kernel M by coefficients a thread: {json.dumps(res['by_run'])}")
     big, small = res[f"2^{BIG_LOG2_ROWS}-row"], res[f"2^{LOG2_ROWS}-row"]
     return dict(
         name="quotient", route="cuda",
@@ -830,7 +936,8 @@ def quotient_kernel(dev, rng, card):
         bound_by=big["bound_by"], library_ms=None,
         small_shape=small["shape"], small_ms=small["ms"],
         small_plain_ms=small["plain_ms"], small_bound_ms=small["bound_ms"],
-        run=Q.RUN, ms_by_run=res["by_run"])
+        run=big["run"], ms_by_run=big["by_run"], small_run=small["run"],
+        small_ms_by_run=small["by_run"])
 
 
 def field_bench(card, records):
@@ -1035,6 +1142,7 @@ def v8_kernels(kzg_big, card):
         f"flags {', '.join(SCAN_PATTERNS)} at the chunk and block-scan "
         f"shapes")
     tri_lanes = rev.shape[0]
+    out.append(triangle_doubling(acc, card))
     del xs, flags, ys, wf, offs, acc, rev
 
     torch.cuda.synchronize()
@@ -1069,6 +1177,51 @@ def v8_kernels(kzg_big, card):
         v8_msm_s=v8_s, cd_msm_s=cd_s,
         msm_shape=f"{nbig} points, uniform scalars below 2^252"))
     return out
+
+
+def triangle_doubling(acc, card):
+    """Kernel E's doubling at v8's triangle (`msm8.triangle`): its 20
+    window points doubled 8 times in one launch, against the plain twin
+    (the same triples) and the 8 kernel E adds it replaced (the same
+    points); the whole triangle timed."""
+    import torch
+
+    from quill_tpu_torch.ec import msm5, msm8
+
+    t = msm8.triangle(acc)
+    k = msm8.BS.bit_length() - 1
+
+    def chain():
+        x = t
+        for _ in range(k):
+            x = msm5.pt_add(x, x)
+        return x
+
+    got = msm5.pt_dbl(t, k)
+    check(torch.equal(got, msm5.pt_dbl_plain(t, k)),
+          "kernel E's doubling disagrees with its plain twin")
+    err = points_err(got, chain())
+    check(err == 0, "kernel E's doubling disagrees with its add chain")
+    rec = dict(
+        name="msm5_pt_dbl", route="cuda", source="quill_tpu_torch/csrc/msm5.cu",
+        replaces="quill_tpu/fields/pallas8.py:475 (_stacked_combine_kernel) "
+                 "in the place of quill_tpu/ec/msm8.py:271 (_k_triangle): "
+                 "the port's triangle weighs its lane sums by 2^8, 8 kernel "
+                 "E launches of P + P before",
+        shape=f"{t.shape[0]} window points x {k} doublings (v8's triangle)",
+        max_abs_err=err, ms=cuda_ms(lambda: msm5.pt_dbl(t, k)),
+        plain_ms=cuda_ms(lambda: msm5.pt_dbl_plain(t, k), reps=1),
+        # least work: k Jacobian doublings of 7 products, and 3 products
+        # into and 3 out of Jacobian coordinates where that is cheaper
+        # than the complete formula's 8 a doubling
+        **bound(card, min(8 * k, 7 * k + 6) * t.shape[0],
+                2 * t.shape[0] * PT),
+        library_ms=None, add_chain_ms=cuda_ms(chain),
+        triangle_ms=cuda_ms(lambda: msm8.triangle(acc)))
+    log(f"kernel E doubling, {rec['shape']}: {rec['ms']:.4f} ms vs plain "
+        f"{rec['plain_ms']:.3f} ms, {k} kernel E adds {rec['add_chain_ms']:.4f}"
+        f" ms; the triangle {rec['triangle_ms']:.3f} ms")
+    return rec
 
 
 def profile_prove(hp, witness):
@@ -1189,19 +1342,26 @@ def prove_path(engine, circuit, witness, make_kzg, tag: str):
     engine.quotient_batches = {}
     metrics.reset()
     t0 = time.time()
+    marks = []                 # build.LAUNCHES after each phase
     pcs = MultilinearPCS(make_kzg())
     torch.cuda.synchronize()
     phases["setup_s"] = time.time() - t0
+    marks.append(dict(build.LAUNCHES))
     t0 = time.time()
     hp = HyperPlonk.preprocess([circuit], pcs)
     torch.cuda.synchronize()
     phases["preprocess_s"] = time.time() - t0
+    marks.append(dict(build.LAUNCHES))
     t0 = time.time()
     proof = hp.prove([TraceWitness(columns=witness)])
     torch.cuda.synchronize()
     phases["prove_s"] = time.time() - t0
     phases["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     launches = dict(build.LAUNCHES)
+    marks.append(launches)
+    by_phase = {k: [marks[0][k], marks[1][k] - marks[0][k],
+                    marks[2][k] - marks[1][k]]
+                for k in launches if launches[k]}
     routes = dict(engine.msm_counts)
     data = serialize_proof(proof)
     t0 = time.time()
@@ -1211,6 +1371,8 @@ def prove_path(engine, circuit, witness, make_kzg, tag: str):
     log(f"{tag} proof: {len(data)} bytes, sha256 {digest}")
     log(f"{tag} phases: " + json.dumps(phases))
     log(f"{tag} launches: " + json.dumps(launches))
+    log(f"{tag} launches by phase (setup, preprocess, prove): "
+        + json.dumps(by_phase))
     log(f"{tag} MSMs by route (preprocess + prove): " + json.dumps(routes))
     batches = {" + ".join(f"2^{n.bit_length() - 1}" if n & (n - 1) == 0
                           else str(n) for n in key): count
@@ -1224,7 +1386,7 @@ def prove_path(engine, circuit, witness, make_kzg, tag: str):
         {k: spans.get(k) for k in ("kzg/quotient", "kzg/open_msm",
                                    "mlpcs/s_poly")}))
     return dict(data=data, digest=digest, launches=launches, routes=routes,
-                hp=hp, pcs=pcs)
+                by_phase=by_phase, hp=hp, pcs=pcs)
 
 
 def main():
@@ -1274,6 +1436,9 @@ def main():
     check(small["routes"]["v8"] == 0, "an MSM of the 2^16-row prove took v8")
     check(small["launches"]["quotient"] > 0,
           "kernel M never launched on the 2^16-row path")
+    check(small["launches"]["msm5_shifted_basis"] > 0
+          and small["launches"]["msm5_pt_add"] == 0,
+          "the 2^16-row path built no shifted basis, or added with kernel E")
     if args.profile:
         profile_prove(small["hp"], witness)
     small_launches = small["launches"]
@@ -1302,6 +1467,10 @@ def main():
     check(big["launches"]["quotient"] > 0
           and big["launches"]["msm8_collect"] > 0,
           "kernel M or the v8 collect never launched on the 2^20-row path")
+    v8 = big["routes"]["v8"]
+    check(big["launches"]["msm5_pt_dbl"] == v8
+          and big["launches"]["msm5_pt_add"] == 3 * v8,
+          "v8's triangle did not take one doubling and 3 adds a MSM")
     if args.cross_check:
         shift_max = engine.msm_shift_max
         engine.msm_shift_max = 1 << 40

@@ -14,9 +14,10 @@
 //
 // G1 formulas: Renes-Costello-Batina 2015 (eprint 2015/1060), a = 0,
 // b3 = 3b = 9: algorithm 7 (projective + projective, 12 mults), algorithm 8
-// (projective + affine, 11 mults) and algorithm 8 with Z1 = 1 (affine +
-// affine, 9 mults).  All three are complete: no branch on the inputs.  The
-// identity is (0 : 1 : 0); an affine operand is never the identity.
+// (projective + affine, 11 mults), algorithm 8 with Z1 = 1 (affine +
+// affine, 9 mults) and algorithm 9 (doubling, 8 mults).  All four are
+// complete: no branch on the inputs.  The identity is (0 : 1 : 0); an
+// affine operand is never the identity.
 #pragma once
 
 #include <stdint.h>
@@ -180,6 +181,25 @@ QHD Fe fe_mul(const Fe& a, const Fe& b) {
   return fe_reduce_once<M>(r);  // result < 2p; t[8] is 0 for p < 2^254
 }
 
+// a^(p - 2) = a^-1 for a != 0 (Fermat): square and multiply over the
+// exponent's bits from the top, 256 squarings and 110 products for Fq.  The
+// words are unrolled so that each is a constant (no array indexed at run
+// time), the bits are not.
+template <class M>
+QHD Fe fe_inv(const Fe& a) {
+  Fe r = fe_one<M>();
+#pragma unroll
+  for (int i = 7; i >= 0; --i) {
+    const uint32_t e = M::p(i) - (i == 0 ? 2u : 0u);  // p's low word > 2
+#pragma unroll 1
+    for (int b = 31; b >= 0; --b) {
+      r = fe_mul<M>(r, r);
+      if ((e >> b) & 1u) r = fe_mul<M>(r, a);
+    }
+  }
+  return r;
+}
+
 // 9 a = 8 a + a
 QHD Fe fq_mul_b3(const Fe& a) {
   Fe d = fe_add<FqM>(a, a);
@@ -284,6 +304,33 @@ QHD G1P g1_add_affine(const G1A& p, const G1A& q) {
   t1 = fe_sub<FqM>(t1, t2);
   y3 = fq_mul_b3(y3);
   return g1_finish(t0, t1, t3, t4, y3, z3);
+}
+
+// algorithm 9: complete projective doubling, a = 0.  6 products and 2
+// squarings (b3 t2 by adds), against g1_add(p, p)'s 12; the identity
+// doubles to itself.  Jacobian dbl-2009-l takes 2 products and 5
+// squarings, 7 in all, but its points need Z^-2 and Z^-3 when normalised
+// (2 more products a window point) and a conversion to and from this
+// projective form wherever the other adds read them: on the small route's
+// ladder (247 doublings, 19 window ends) it would save ~10% of the
+// products, at the price of a second representation and its own plain
+// twin.  This one keeps a single form for every kernel.
+QHD G1P g1_dbl(const G1P& p) {
+  const Fe t0 = fe_mul<FqM>(p.y, p.y);
+  Fe z3 = fe_add<FqM>(t0, t0);
+  z3 = fe_add<FqM>(z3, z3);
+  z3 = fe_add<FqM>(z3, z3);
+  const Fe t1 = fe_mul<FqM>(p.y, p.z);
+  const Fe t2 = fq_mul_b3(fe_mul<FqM>(p.z, p.z));
+  G1P r;
+  r.x = fe_mul<FqM>(t2, z3);
+  Fe y3 = fe_add<FqM>(t0, t2);
+  r.z = fe_mul<FqM>(t1, z3);
+  const Fe u = fe_sub<FqM>(t0, fe_add<FqM>(fe_add<FqM>(t2, t2), t2));
+  r.y = fe_add<FqM>(r.x, fe_mul<FqM>(u, y3));
+  r.x = fe_mul<FqM>(u, fe_mul<FqM>(p.x, p.y));
+  r.x = fe_add<FqM>(r.x, r.x);
+  return r;
 }
 
 // ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@
 
 #include "bn254.cuh"
 #include "bucket.cuh"
+#include "ladder.cuh"
 #include "ntt.cuh"
 #include "quotient.cuh"
 #include "seg_scan.cuh"
@@ -199,6 +200,21 @@ void q_g1_add(const uint32_t* p, const uint32_t* q, uint32_t* out, long n) {
     g1_store(out + 24 * i, g1_add(g1_load(p + 24 * i), g1_load(q + 24 * i)));
 }
 
+void q_g1_dbl(const uint32_t* p, uint32_t* out, long n) {
+  for (long i = 0; i < n; ++i)
+    g1_store(out + 24 * i, g1_dbl(g1_load(p + 24 * i)));
+}
+
+// Kernel E's shifted basis (csrc/msm5.cu: shifted_basis_kernel) emulated:
+// the thread body of ladder.cuh for every point.  xy: (n, 16); inf: (n,)
+// bytes; out: (n nwin, 16), chunks of `chunk` points each window-major.
+void q_shifted_basis(const uint32_t* xy, const uint8_t* inf, long n,
+                     long chunk, int nwin, int wbits, uint32_t* out) {
+  std::vector<uint32_t> scratch(16 * (nwin > 1 ? nwin - 1 : 1) * n);
+  for (long i = 0; i < n; ++i)
+    shifted_point(xy, inf, i, n, chunk, nwin, wbits, out, scratch.data());
+}
+
 void q_g1_add_mixed(const uint32_t* p, const uint32_t* q, uint32_t* out,
                     long n) {
   for (long i = 0; i < n; ++i)
@@ -271,40 +287,46 @@ void q_seg_scan_blocked(const uint32_t* xs, const uint8_t* flags, long m,
 }
 
 // Kernel M (csrc/quotient.cu) emulated for one job: tiles of blk runs of r
-// coefficients, each run through phase 1 of quotient.cuh, the block's run
-// totals turned into carries and the tile's total in thread order, then the
-// tiles' carries (phase 2) and phase 3 on every run.  c, out: (n, 8); tab,
-// itab: QUOT_LOG rows of x^(2^i) and x^-(2^i); y: 8 words, p(x) Montgomery.
-void q_quotient_blocked(const uint32_t* c, long n, const uint32_t* tab,
-                        const uint32_t* itab, long blk, long r, uint32_t* out,
-                        uint32_t* y) {
+// coefficients, each run's map by phase 1 of quotient.cuh, each run's map
+// from the tile's top composed in thread order from the top and the tile's
+// map, then the tiles' H at their tops (phase 2) and phase 3 on every run.
+// Composition is associative and exact, so any bracketing of the kernel's
+// scans gives these values.  c, out: (n, 8); x: 8 words, Montgomery; y: 8
+// words, p(x) Montgomery.
+void q_quotient_blocked(const uint32_t* c, long n, const uint32_t* x,
+                        long blk, long r, uint32_t* out, uint32_t* y) {
   const long tile = blk * r, nt = (n + tile - 1) / tile;
-  std::vector<Fe> runc(nt * blk), tilet(nt);
+  const Fe xv = fe_load(x), xr = qt_pow(xv, r);
+  std::vector<QtMap> runc(nt * blk), tilet(nt);
+  std::vector<long> lo(nt * blk), hi(nt * blk);
   for (long g = 0; g < nt; ++g) {
-    Fe sum = fe_zero<FrM>();
+    std::vector<QtMap> m(blk);
     for (long t = 0; t < blk; ++t) {
-      const long lo = g * tile + t * r < n ? g * tile + t * r : n;
-      const long hi = lo + r < n ? lo + r : n;
-      runc[g * blk + t] = sum;
-      if (lo < hi) sum = fe_add<FrM>(sum, qt_run_scan(c, tab, lo, hi, out));
+      const long a = g * tile + t * r < n ? g * tile + t * r : n;
+      lo[g * blk + t] = a;
+      hi[g * blk + t] = a + r < n ? a + r : n;
+      m[t] = qt_run_map(c, xv, xr, r, a, hi[g * blk + t]);
     }
-    tilet[g] = sum;
-  }
-  Fe carry = fe_zero<FrM>();
-  for (long g = 0; g < nt; ++g) {
-    const Fe v = tilet[g];
-    tilet[g] = carry;
-    carry = fe_add<FrM>(carry, v);
-  }
-  fe_store(y, carry);
-  for (long g = 0; g < nt; ++g)
-    for (long t = 0; t < blk; ++t) {
-      const long lo = g * tile + t * r < n ? g * tile + t * r : n;
-      const long hi = lo + r < n ? lo + r : n;
-      if (lo < hi)
-        qt_run_finish(out, itab, lo, hi,
-                      fe_add<FrM>(tilet[g], runc[g * blk + t]), carry);
+    QtMap above = qt_identity();
+    for (long t = blk - 1; t >= 0; --t) {
+      runc[g * blk + t] = above;
+      above = qt_compose(m[t], above);
     }
+    tilet[g] = above;
+  }
+  std::vector<Fe> top(nt);
+  QtMap above = qt_identity();
+  for (long g = nt - 1; g >= 0; --g) {
+    top[g] = above.b;
+    above = qt_compose(tilet[g], above);
+  }
+  fe_store(y, above.b);
+  for (long k = 0; k < nt * blk; ++k) {
+    if (lo[k] >= hi[k]) continue;
+    const QtMap& m = runc[k];
+    qt_run_finish(c, xv, lo[k], hi[k], n,
+                  fe_add<FrM>(m.b, fe_mul<FrM>(m.a, top[k / blk])), out);
+  }
 }
 
 // Kernel C (csrc/msm.cu) emulated: the identity fill, then threads of k

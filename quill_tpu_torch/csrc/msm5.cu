@@ -3,9 +3,14 @@
 //
 // E  pt_add      replaces quill_tpu/fields/pallas8.py:_stacked_combine_kernel
 //                (pt_add_stacked and its flagged mode seg_combine_stacked):
-//                out[i] = flags && flags[i] ? b[i] : a[i] + b[i].  The
-//                shifted basis's doubling ladder (ec/msm3.py:90-107) is 247
-//                launches of a + a.
+//                out[i] = flags && flags[i] ? b[i] : a[i] + b[i].
+//    shifted_basis  replaces E's doubling ladder (quill_tpu/ec/msm3.py:90
+//                _shift_doubling, one _stacked_combine_kernel launch a
+//                doubling) and the batch normalisation after it: for n
+//                points, nwin windows of 2^(wbits w) P_i as affine rows,
+//                one launch (below).
+//    pt_dbl      k doublings of each point in one launch (v8's triangle,
+//                ec/msm8.py, where E added a point to itself k times).
 // F  tree_up0    replaces quill_tpu/ec/msm5.py:_up0_kernel: the affine leaf
 //                level, out[j] = leaf[2j] + leaf[2j+1] with Z1 = Z2 = 1 (9
 //                products instead of 12), projective out.
@@ -26,11 +31,15 @@
 // operations a byte, above the card's ~5 int32
 // multiply-adds a byte (132 SMs x 64 a clock against 3.35 TB/s).  Design: the
 // arithmetic is bn254.cuh's, kept in registers; nothing is staged in shared
-// memory, since every byte is read once.  Making the adds themselves cheaper
-// (a dedicated doubling for the ladder, fewer reductions) is later work.
+// memory, since every byte is read once.
+//
+// The shifted basis: one thread a base point, its windows' doublings in
+// registers and their normalisation by Montgomery's trick inside the
+// thread (csrc/ladder.cuh has the thread body and its design).
 #include <cuda_runtime.h>
 
 #include "bn254.cuh"
+#include "ladder.cuh"
 
 using namespace bn254;
 
@@ -82,6 +91,27 @@ tree_down_kernel(const uint32_t* __restrict__ in,
   g1_store(out + 48 * j + 24, p);
 }
 
+__global__ void __launch_bounds__(MSM5_BLOCK)
+pt_dbl_kernel(const uint32_t* __restrict__ a, long long n, int k,
+              uint32_t* __restrict__ out) {
+  long long i = (long long)blockIdx.x * MSM5_BLOCK + threadIdx.x;
+  if (i >= n) return;
+  G1P p = g1_load(a + 24 * i);
+#pragma unroll 1
+  for (int j = 0; j < k; ++j) p = g1_dbl(p);
+  g1_store(out + 24 * i, p);
+}
+
+__global__ void __launch_bounds__(MSM5_BLOCK)
+shifted_basis_kernel(const uint32_t* __restrict__ xy,
+                     const uint8_t* __restrict__ inf, long long n,
+                     long long chunk, int nwin, int wbits,
+                     uint32_t* __restrict__ out,
+                     uint32_t* __restrict__ scratch) {
+  const long long i = (long long)blockIdx.x * MSM5_BLOCK + threadIdx.x;
+  if (i < n) shifted_point(xy, inf, i, n, chunk, nwin, wbits, out, scratch);
+}
+
 static unsigned blocks(long long n) {
   return (unsigned)((n + MSM5_BLOCK - 1) / MSM5_BLOCK);
 }
@@ -94,6 +124,30 @@ extern "C" int quill_pt_add(const void* a, const void* b, const void* flags,
   pt_add_kernel<<<blocks(n), MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (const uint8_t*)flags, n,
       (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// a, out: (n, 24) words, out = 2^k a; out may not alias a
+extern "C" int quill_pt_dbl(const void* a, long long n, int k, void* out,
+                            void* stream) {
+  if (n <= 0) return 0;
+  pt_dbl_kernel<<<blocks(n), MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, n, k, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// xy: (n, 16) affine words, 16-byte aligned; inf: (n,) bytes; out: (n nwin,
+// 16) words in chunks of `chunk` points, each window-major; scratch: ((nwin
+// - 1) n, 16) words
+extern "C" int quill_shifted_basis(const void* xy, const void* inf,
+                                   long long n, long long chunk, int nwin,
+                                   int wbits, void* out, void* scratch,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  if (chunk <= 0 || nwin < 1 || wbits < 0) return (int)cudaErrorInvalidValue;
+  shifted_basis_kernel<<<blocks(n), MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)xy, (const uint8_t*)inf, n, chunk, nwin, wbits,
+      (uint32_t*)out, (uint32_t*)scratch);
   return (int)cudaGetLastError();
 }
 

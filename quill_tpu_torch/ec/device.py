@@ -8,7 +8,8 @@ b3 = 3 * 3 = 9, exactly as `csrc/bn254.cuh` writes them:
 
 - `padd`: projective + projective (algorithm 7), 12 multiplications;
 - `madd`: projective + affine (algorithm 8), 11 multiplications;
-- `aadd`: affine + affine (algorithm 8 with Z1 = 1), 9 multiplications.
+- `aadd`: affine + affine (algorithm 8 with Z1 = 1), 9 multiplications;
+- `pdbl`: doubling (algorithm 9), 8 multiplications.
 
 Points are homogeneous projective (X : Y : Z), affine x = X/Z, y = Y/Z;
 the identity is (0 : 1 : 0).  Storage is `(n, 3, 8)` int32 (projective)
@@ -120,6 +121,24 @@ def aadd_w(p, q):
     return _tail(t0, t1, one, t3, s[..., 2, :], s[..., 3, :])
 
 
+def pdbl_w(p):
+    """Complete projective doubling on w16 tensors (..., 3, 16): algorithm
+    9 (a = 0), in `csrc/bn254.cuh: g1_dbl`'s steps, so the same triples."""
+    X, Y, Z = _split(p, 3)
+    m = _mul(torch.stack((Y, Y, Z, X), -2), torch.stack((Y, Z, Z, Y), -2))
+    t0, t1, zz, xy = _split(m, 4)
+    t2 = _mul(zz, _smalls(p.device, B3)[0])
+    z3 = _add(t0, t0)
+    z3 = _add(z3, z3)
+    z3 = _add(z3, z3)
+    y3 = _add(t0, t2)
+    u = _sub(t0, _add(_add(t2, t2), t2))
+    m = _mul(torch.stack((t2, t1, u, u), -2), torch.stack((z3, z3, y3, xy),
+                                                          -2))
+    x3, zr, uy, ux = _split(m, 4)
+    return torch.stack((_add(ux, ux), _add(x3, uy), zr), -2)
+
+
 # -- storage-level wrappers ---------------------------------------------------
 
 
@@ -133,6 +152,10 @@ def madd(p, q):
 
 def aadd(p, q):
     return fd.from_w16(aadd_w(fd.to_w16(p), fd.to_w16(q)))
+
+
+def pdbl(p):
+    return fd.from_w16(pdbl_w(fd.to_w16(p)))
 
 
 def identity_w(shape, device):

@@ -11,10 +11,12 @@ For B MSMs over one CRS chunk of n <= 2^16 points:
 1. digits: 20 unsigned 13-bit windows per scalar
    (`quill_tpu/ec/msm.py:131 _extract_digits`); digits of basis points at
    infinity are forced to 0 (`msm5.py:177`);
-2. shifted basis: window w holds 2^(13 w) G_i, built once per CRS chunk by
-   19 rounds of 13 doublings (kernel E adds each point to itself) and one
-   batch normalisation to affine; points at infinity become the generator
-   (`msm5.py:24-29`).  It is cached on the root basis, so slices share it;
+2. shifted basis: window w holds 2^(13 w) G_i as an affine point, points
+   at infinity replaced by the generator (`msm5.py:24-29`): 19 rounds of
+   13 doublings and a normalisation, all inside kernel E's one shifted-
+   basis launch (`csrc/ladder.cuh`: one thread a point, Montgomery's
+   trick over its own windows) for every chunk a call needs.  It is cached
+   per CRS chunk on the root basis, so slices share it;
 3. leaves: every (MSM b, window w, point i) is keyed b * 8192 + digit, one
    stable `torch.sort` orders the B * 20 * n keys, and the leaves are the
    shifted affine points in that order;
@@ -60,6 +62,11 @@ def _fns():
         vp, i64 = build.VP, build.I64
         _FN["add"] = build.bind(lib, "quill_pt_add",
                                 [vp, vp, vp, i64, vp, vp])
+        _FN["dbl"] = build.bind(lib, "quill_pt_dbl",
+                                [vp, i64, build.I32, vp, vp])
+        _FN["shifted"] = build.bind(
+            lib, "quill_shifted_basis",
+            [vp, vp, i64, i64, build.I32, build.I32, vp, vp, vp])
         _FN["up0"] = build.bind(lib, "quill_tree_up0", [vp, i64, vp, vp])
         _FN["up"] = build.bind(lib, "quill_tree_up", [vp, i64, vp, vp])
         _FN["down"] = build.bind(lib, "quill_tree_down",
@@ -114,6 +121,28 @@ def pt_add_plain(a, b, flags=None):
     if flags is not None:
         out = torch.where(flags[:, None, None], b, out)
     return out
+
+
+def pt_dbl(p, k: int = 1):
+    """Kernel E's doubling: 2^k p for (n, 3, 8) points, k doublings
+    (`bn254.cuh: g1_dbl`) in one launch."""
+    if not p.is_cuda:
+        return pt_dbl_plain(p, k)
+    _check_points(p, 3, "p")
+    _require(k >= 0, "k must be >= 0")
+    out = _out(p.shape[0], p)
+    rc = _fns()["dbl"](p.data_ptr(), p.shape[0], k, out.data_ptr(),
+                       build.stream_ptr())
+    build.check(rc, "msm5_pt_dbl")
+    build.count("msm5_pt_dbl")
+    return out
+
+
+def pt_dbl_plain(p, k: int = 1):
+    w = fd.to_w16(p)
+    for _ in range(k):
+        w = ed.pdbl_w(w)
+    return fd.from_w16(w)
 
 
 # ---------------------------------------------------------------------------
@@ -193,33 +222,73 @@ def tree_down_plain(i, u):
 # ---------------------------------------------------------------------------
 
 
-def chunk_points(root: TorchBasis, j: int):
-    """Chunk j of a basis as (n, 3, 8) projective points with Z = 1, points
-    at infinity replaced by the generator, and its (n,) infinity mask."""
-    lo = j * CHUNK
-    hi = min(root.length, lo + CHUNK)
-    xy, inf = root.xy[lo:hi], root.inf[lo:hi]
+def shifted_basis(xy, inf, nwin: int = NWIN, wbits: int = WBITS,
+                  chunk: int | None = None):
+    """Kernel E's shifted basis: (n, 2, 8) affine points and their (n,)
+    infinity mask -> (nwin * n, 2, 8) affine rows of 2^(wbits w) P_i (the
+    generator's where P_i is at infinity), in chunks of `chunk` points
+    (default: all n in one), each window-major: window w of point i sits
+    at row c0 * nwin + w * nc + (i - c0), c0 the chunk's first point and nc
+    its size.  One launch; nothing is read back."""
+    n = xy.shape[0]
+    chunk = n if chunk is None else chunk
+    if not xy.is_cuda:
+        return shifted_basis_plain(xy, inf, nwin, wbits, chunk)
+    _check_points(xy, 2, "xy")
+    _require(inf.is_cuda and inf.dtype == torch.bool and inf.is_contiguous()
+             and inf.shape == (n,), "inf must be a contiguous (n,) bool "
+             "tensor on CUDA")
+    _require(xy.data_ptr() % 16 == 0 and chunk > 0 and nwin >= 1
+             and wbits >= 0, "xy must be 16-byte aligned, chunk > 0, "
+             "nwin >= 1 and wbits >= 0")
+    out = torch.empty((nwin * n, 2, fd.NLIMB), dtype=torch.int32,
+                      device=xy.device)
+    scratch = torch.empty((max(nwin - 1, 1) * n, 2, fd.NLIMB),
+                          dtype=torch.int32, device=xy.device)
+    rc = _fns()["shifted"](xy.data_ptr(), inf.data_ptr(), n, chunk, nwin,
+                           wbits, out.data_ptr(), scratch.data_ptr(),
+                           build.stream_ptr())
+    build.check(rc, "msm5_shifted_basis")
+    build.count("msm5_shifted_basis")
+    return out
+
+
+def shifted_basis_plain(xy, inf, nwin: int = NWIN, wbits: int = WBITS,
+                        chunk: int | None = None):
+    """The plain twin of `shifted_basis`: per chunk, the doubling ladder
+    and one batch normalisation."""
+    n = xy.shape[0]
+    chunk = n if chunk is None else chunk
+    parts = []
+    for lo in range(0, n, chunk):
+        pts = base_points(xy[lo:lo + chunk], inf[lo:lo + chunk])
+        lad = shift_ladder(pts, nwin, wbits).reshape(-1, 3, fd.NLIMB)
+        parts.append(to_affine(lad))
+    return torch.cat(parts, 0) if parts else xy.new_empty((0, 2, fd.NLIMB))
+
+
+def base_points(xy, inf):
+    """(n, 2, 8) affine points -> (n, 3, 8) projective with Z = 1, points at
+    infinity replaced by the generator."""
     dev = xy.device
     g = curve.g1_affine_generator()
     gen = fd.from_ints([g.x.v, g.y.v], FQ, dev)
     xy = torch.where(inf[:, None, None], gen, xy)
-    one = fd.const(1, FQ, dev).expand(hi - lo, 1, fd.NLIMB)
-    return torch.cat((xy, one), 1).contiguous(), inf
+    one = fd.const(1, FQ, dev).expand(xy.shape[0], 1, fd.NLIMB)
+    return torch.cat((xy, one), 1).contiguous()
 
 
-def shift_ladder(p, plain: bool = False, nwin: int = NWIN,
-                 wbits: int = WBITS):
+def shift_ladder(p, nwin: int = NWIN, wbits: int = WBITS):
     """(n, 3, 8) points -> (nwin, n, 3, 8), window w holding 2^(wbits w) p:
-    nwin - 1 rounds of wbits doublings, each a kernel E launch (247 in all
-    for this route's 20 windows of 13 bits)."""
-    add = pt_add_plain if plain else pt_add
-    wins = [p]
+    nwin - 1 rounds of wbits plain doublings (`ec/device.py: pdbl_w`, the
+    kernel's formula)."""
+    w = fd.to_w16(p)
+    wins = [w]
     for _ in range(nwin - 1):
-        cur = wins[-1]
         for _ in range(wbits):
-            cur = add(cur, cur)
-        wins.append(cur)
-    return torch.stack(wins, 0)
+            w = ed.pdbl_w(w)
+        wins.append(w)
+    return fd.from_w16(torch.stack(wins, 0))
 
 
 def to_affine(p):
@@ -230,18 +299,25 @@ def to_affine(p):
     return fd.from_w16(xy).contiguous()
 
 
-def build_shifted(root: TorchBasis, j: int):
-    """The shifted basis of chunk j: (NWIN * n, 2, 8) affine, window-major
-    (row w * n + i holds 2^(13 w) G_i)."""
-    pts, _ = chunk_points(root, j)
-    return to_affine(shift_ladder(pts).reshape(-1, 3, fd.NLIMB))
+def _chunk(root: TorchBasis, j: int) -> tuple:
+    return j * CHUNK, min(root.length, (j + 1) * CHUNK)
 
 
 def shifted(basis: TorchBasis, j: int):
-    """build_shifted of chunk j, cached on the root basis."""
+    """The shifted basis of chunk j of the root basis: (NWIN * n, 2, 8)
+    affine, window-major (row w * n + i holds 2^(13 w) G_i), cached on the
+    root.  A miss builds chunk j and every later chunk the basis reaches in
+    one launch, and caches each."""
     root = basis.root or basis
     if j not in root.shifted:
-        root.shifted[j] = build_shifted(root, j)
+        last = max(j, -(-basis.length // CHUNK) - 1)
+        lo, hi = _chunk(root, j)[0], _chunk(root, last)[1]
+        sh = shifted_basis(root.xy[lo:hi], root.inf[lo:hi], chunk=CHUNK)
+        off = 0
+        for c in range(j, last + 1):
+            rows = NWIN * (_chunk(root, c)[1] - _chunk(root, c)[0])
+            root.shifted[c] = sh[off:off + rows]
+            off += rows
     return root.shifted[j]
 
 

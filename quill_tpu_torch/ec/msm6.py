@@ -16,8 +16,9 @@ at most `msm_shift_max` points.  One MSM over n points:
    in step 6, so both give the same sum, and this keeps small MSMs small);
 2. shifted basis (`msm6.py:157-328`): window w holds 2^(16 w) P_i as affine
    points, points at infinity replaced by the generator, built once per
-   root basis by 15 rounds of 16 doublings (kernel E) and one batch
-   normalisation, and extended when a wider MSM needs more points.  The
+   root basis by 15 rounds of 16 doublings and a normalisation in kernel
+   E's shifted-basis launch (`msm5.shifted_basis`), and extended when a
+   wider MSM needs more points, in one launch over the new points.  The
    JAX package builds a tau CRS's by fixed-base products instead
    (`:258-303`; the same points) and keeps a disk cache (`:205-256`), which
    the port does not;
@@ -61,7 +62,7 @@ NWIN = 16
 NBUCK = 1 << WBITS
 NQ = NBUCK - 1             # bucket queries, b = 0 .. 2^16 - 2
 MIN_TOP = 1024             # `_MIN_H`: the widest top level of the tree
-CHUNK = msm5.CHUNK         # basis points a shifted-basis ladder takes
+CHUNK = msm5.CHUNK         # the shifted basis grows by whole chunks
 CACHE_KEY = "v6"           # of the shifted basis in TorchBasis.shifted
 
 _FN = {}
@@ -124,20 +125,17 @@ def shifted(basis: TorchBasis, n: int):
     """The v6 shifted basis over at least the root's first n points:
     (16, m, 2, 8) affine, m >= n, row (w, i) holding 2^(16 w) P_i (the
     generator's multiple where P_i is at infinity).  Cached on the root;
-    a wider MSM extends it one ladder of CHUNK points at a time."""
+    a wider MSM extends it to whole chunks of CHUNK points, all its new
+    points in one kernel E launch (`msm5.shifted_basis`)."""
     root = basis.root or basis
     have = root.shifted.get(CACHE_KEY)
     m = 0 if have is None else have.shape[1]
     if m >= n:
         return have
-    parts = [] if have is None else [have]
-    for j in range(m // CHUNK, -(-n // CHUNK)):
-        pts, _ = msm5.chunk_points(root, j)
-        lad = msm5.shift_ladder(pts, nwin=NWIN, wbits=WBITS)
-        aff = msm5.to_affine(lad.reshape(-1, 3, fd.NLIMB))
-        parts.append(aff.reshape(NWIN, -1, 2, fd.NLIMB))
-        del lad
-    sh = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+    hi = min(root.length, -(-n // CHUNK) * CHUNK)
+    new = msm5.shifted_basis(root.xy[m:hi], root.inf[m:hi], NWIN, WBITS)
+    new = new.reshape(NWIN, hi - m, 2, fd.NLIMB)
+    sh = new if have is None else torch.cat((have, new), 1)
     root.shifted[CACHE_KEY] = sh
     return sh
 

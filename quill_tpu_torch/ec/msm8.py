@@ -245,7 +245,8 @@ def triangle(acc: torch.Tensor) -> torch.Tensor:
 
     Kernel I scans the reversed buckets (y), then y itself (its totals are
     Z), then the 32 lane totals of each window (Q) and Q and Z together
-    (their totals); kernel E doubles 8 times and adds.  `msm8.py:246-286`
+    (their totals); kernel E adds, doubles 8 times in one launch
+    (`msm5.pt_dbl`) and adds twice.  `msm8.py:246-286`
     takes a full scan, a combine pass over all buckets and a second full
     scan; this takes two scans and no combine pass."""
     nb = NBUCK // BS
@@ -256,9 +257,8 @@ def triangle(acc: torch.Tensor) -> torch.Tensor:
     tot = seg_scan(torch.cat((q, z), 0))[:, -1]
     sum_q, sum_z = tot[:NWIN], tot[NWIN:]
     last = _neg(q[:, -1])
-    t = msm5.pt_add(sum_q.contiguous(), last)
-    for _ in range(BS.bit_length() - 1):
-        t = msm5.pt_add(t, t)
+    t = msm5.pt_dbl(msm5.pt_add(sum_q.contiguous(), last),
+                    BS.bit_length() - 1)
     return msm5.pt_add(msm5.pt_add(t, sum_z.contiguous()), last)
 
 

@@ -7,8 +7,9 @@ own copy of the JAX package's host modules; this class is what it runs on.
 - A device vector (`TVec`) is an `(n, 8)` int32 tensor of Fr elements in
   Montgomery form (`fields/device.py`) plus a logical length; rows past the
   length are zero.  `pcs/kzg.py` sends a batch's device vectors with
-  x != 0 through `engine/quotient.py` (kernel M), grouped by their count of
-  2^16-element chunks as the JAX copy groups its DVecs.
+  x != 0 through `engine/quotient.py` (kernel M), all of them in input
+  order (the JAX copy groups its DVecs by their count of 2^16-element
+  chunks, for its fixed XLA shapes).
 - Vectors shorter than `min_device_size` stay `HostEngine` object arrays,
   as `engine/device.py:418-422` keeps sub-chunk vectors on the host.  The
   handoff is by size only.

@@ -2,17 +2,20 @@
 (`csrc/quotient.cu`), with one host readback for the whole batch.
 
 Counterpart of `quill_tpu/engine/quotient.py: quotient_many_device`, which
-`pcs/kzg.py: KZG._quotients` calls for a batch's device vectors with x != 0,
-grouped by chunk count.  For each opening (c, x):
+`pcs/kzg.py: KZG._quotients` calls for a batch's device vectors with x != 0
+(the JAX copy groups them by chunk count; the port sends them all, in input
+order).  For each opening (c, x), by Ruffini's recurrence:
 
-    q_k = (y - P_k) x^-(k+1)   with   P_k = sum_{t <= k} c_t x^t,  y = P_{n-1}
+    H_k = c_k + x H_(k+1) from H_n = 0,   q_(k-1) = H_k,   y = H_0
 
 The JAX route runs 2 x nch XLA passes over 2^16-coefficient chunks, carrying
 the chunk offsets on the device; kernel M runs three launches for up to
-MAX_JOBS openings of any lengths (tiles of 128 runs of RUN coefficients,
-their carries, then q in place) and the host reads the y values back once.
-The quotient keeps the port's length, n - 1 coefficients (the JAX route's
-DVec keeps n, the last one 0).  On a CPU tensor the plain twin runs.
+MAX_JOBS openings of any lengths (tiles of 128 runs of r coefficients,
+each run's affine map H_top -> H_bottom scanned from the top, then q), with
+x and x^r in the launch parameters, and the host reads the y values back
+once.  The quotient keeps the port's length, n - 1 coefficients (the JAX
+route's DVec keeps n, the last one 0).  On a CPU tensor the plain twin
+runs.
 """
 
 from __future__ import annotations
@@ -28,11 +31,10 @@ from ..fields.scalar import inv
 from ..kernels import build
 from .device import TVec
 
-CHUNK = 1 << 16   # the JAX engine's DVec chunk: `open_many` groups by it
 MAX_JOBS = 16     # openings a launch (QUOT_MAX_JOBS)
 BLOCK = 128       # runs a tile (QUOT_BLOCK)
-RUN = 32          # coefficients a run
-QUOT_LOG = 32     # rows of each power table; n < 2^QUOT_LOG
+RUNS = (128, 64, 32)   # coefficients a run, the longest first
+MIN_RUNS = 1 << 15     # runs (threads) a batch keeps where it can
 
 _FN = {}
 
@@ -40,61 +42,75 @@ _FN = {}
 def _fn():
     if not _FN:
         pp = ctypes.POINTER(ctypes.c_void_p)
+        u32 = ctypes.POINTER(ctypes.c_uint32)
         _FN["f"] = build.bind(
             build.lib("quotient"), "quill_quotient",
-            [pp, pp, ctypes.POINTER(ctypes.c_longlong), build.I32, build.VP,
+            [pp, pp, ctypes.POINTER(ctypes.c_longlong), u32, u32, build.I32,
              build.I64, build.I64, build.VP, build.VP, build.VP, build.VP])
     return _FN["f"]
 
 
-def tables(xs: list[int], device) -> torch.Tensor:
-    """(B, 2, QUOT_LOG, 8) Montgomery tables x^(2^i) and x^-(2^i), made on
-    the host and copied without waiting for the stream."""
-    vals = []
-    for x in xs:
-        for v in (x, inv(x, R)):
-            for _ in range(QUOT_LOG):
-                vals.append(FR.mont(v))
-                v = v * v % R
-    t = fd.ints_to_tensor(vals).reshape(len(xs), 2, QUOT_LOG, fd.NLIMB)
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+def _words(vals: list[int]):
+    """Field elements' Montgomery words, one C array."""
+    words = [w for v in vals for w in fd.mont_words(v)]
+    return (ctypes.c_uint32 * len(words))(*words)
 
 
-def scan(cs: list[torch.Tensor], xs: list[int], run: int = RUN):
-    """Kernel M: (n_j, 8) Montgomery coefficient tensors and points x_j != 0
-    (at most MAX_JOBS, 1 <= n_j < 2^32) -> (the y_j = p_j(x_j) as canonical
-    ints, the (n_j, 8) tensors of q_0 .. q_{n_j - 2} and a zero row).  One
-    count a batch: its three phase launches."""
-    if not cs[0].is_cuda:
-        return scan_plain(cs, xs)
+def run_for(lengths: list[int]) -> int:
+    """Coefficients a run for a batch of jobs of these lengths: the longest
+    of RUNS that leaves MIN_RUNS runs, else the shortest.  A longer run
+    spends less on the scans (~18 products a run), a shorter one keeps
+    more threads: on an H100 4 x 2^22 coefficients were fastest at 128,
+    8 x 2^18 at 64 and 8 x 2^16 at 32 (PERF.md)."""
+    for r in RUNS:
+        if sum(-(-n // r) for n in lengths) >= MIN_RUNS:
+            return r
+    return RUNS[-1]
+
+
+def launch(cs: list[torch.Tensor], xs: list[int], run: int | None = None):
+    """Kernel M's three launches for (n_j, 8) Montgomery coefficient
+    tensors on the card and points x_j != 0 (at most MAX_JOBS, n_j >= 1),
+    in runs of `run` coefficients (default `run_for` the batch), nothing
+    read back -> ((B, 8) Montgomery y_j on the card, the (n_j, 8) tensors
+    of q_0 .. q_{n_j - 2} and a zero row)."""
+    if run is None:
+        run = run_for([c.shape[0] for c in cs])
     xs = [int(x) % R for x in xs]
     if not 0 < len(cs) == len(xs) <= MAX_JOBS or 0 in xs or run < 1:
         raise ValueError(f"kernel M takes 1 to {MAX_JOBS} jobs with x != 0")
     for c in cs:
         if not (c.is_cuda and c.dtype == torch.int32 and c.is_contiguous()
                 and c.dim() == 2 and c.shape[1] == fd.NLIMB
-                and 0 < c.shape[0] < 1 << QUOT_LOG
-                and c.data_ptr() % 16 == 0):
+                and c.shape[0] > 0 and c.data_ptr() % 16 == 0):
             raise ValueError("coefficients must be contiguous, 16-byte "
                              "aligned (n, 8) int32 CUDA tensors, n >= 1")
     dev = cs[0].device
     nb = len(cs)
     outs = [torch.empty_like(c) for c in cs]
-    tiles = sum(-(-c.shape[0] // (BLOCK * run)) for c in cs)
-    runc = torch.empty((tiles, BLOCK, fd.NLIMB), dtype=torch.int32,
-                       device=dev)
-    tilet = torch.empty((tiles, fd.NLIMB), dtype=torch.int32, device=dev)
     ys = torch.empty((nb, fd.NLIMB), dtype=torch.int32, device=dev)
-    pows = tables(xs, dev)
+    tiles = sum(-(-c.shape[0] // (BLOCK * run)) for c in cs)
+    runc = torch.empty((tiles * BLOCK, 2, fd.NLIMB), dtype=torch.int32,
+                       device=dev)
+    tilet = torch.empty((tiles, 2, fd.NLIMB), dtype=torch.int32, device=dev)
     rc = _fn()((ctypes.c_void_p * nb)(*[c.data_ptr() for c in cs]),
                (ctypes.c_void_p * nb)(*[o.data_ptr() for o in outs]),
-               (ctypes.c_longlong * nb)(*[c.shape[0] for c in cs]), nb,
-               pows.data_ptr(), run, tiles, runc.data_ptr(),
-               tilet.data_ptr(), ys.data_ptr(), build.stream_ptr())
+               (ctypes.c_longlong * nb)(*[c.shape[0] for c in cs]),
+               _words(xs), _words([pow(x, run, R) for x in xs]), nb, run,
+               tiles, runc.data_ptr(), tilet.data_ptr(), ys.data_ptr(),
+               build.stream_ptr())
     build.check(rc, "quotient")
     build.count("quotient")
+    return ys, outs
+
+
+def scan(cs: list[torch.Tensor], xs: list[int], run: int | None = None):
+    """Kernel M: `launch`, then the y_j read back as canonical ints -> (ys,
+    the (n_j, 8) tensors of q_0 .. q_{n_j - 2} and a zero row).  One count
+    a batch: its three phase launches.  The plain twin for CPU tensors."""
+    if not cs[0].is_cuda:
+        return scan_plain(cs, xs)
+    ys, outs = launch(cs, xs, run)
     return [FR.unmont(v) for v in fd.tensor_to_ints(ys)], outs
 
 
@@ -129,9 +145,9 @@ def prefix_sum(t: torch.Tensor) -> torch.Tensor:
 def quotient_many_device(engine, jobs: list) -> list:
     """jobs: [(TVec poly, x)] with x != 0 -> [(y, q)] in input order, q the
     n - 1 coefficients of (p - y) / (X - x) as the engine wraps a result of
-    that length.  Kernel M on the card, MAX_JOBS jobs a launch; the plain
-    twin for CPU tensors.  Each batch is counted in
-    `engine.quotient_batches`."""
+    that length.  Kernel M on the card, MAX_JOBS jobs a launch, of any
+    lengths; the plain twin for CPU tensors.  Each batch is counted in
+    `engine.quotient_batches` by its jobs' lengths."""
     out = []
     for i in range(0, len(jobs), MAX_JOBS):
         part = jobs[i:i + MAX_JOBS]

@@ -42,7 +42,7 @@ LIBS = {
     "quotient": "quotient.cu",
 }
 HEADERS = ["bn254.cuh", "seg_scan.cuh", "quotient.cuh", "bucket.cuh",
-           "ntt.cuh", "sumcheck.cuh"]
+           "ntt.cuh", "sumcheck.cuh", "ladder.cuh"]
 HOST_SOURCE = "bn254_host.cpp"
 # host library -> C source under native/
 NATIVE_LIBS = {
@@ -66,6 +66,8 @@ LAUNCHES = {
     "msm_bucket_sum": 0,     # kernel C
     "msm_bucket_reduce": 0,  # kernel D
     "msm5_pt_add": 0,        # kernel E
+    "msm5_shifted_basis": 0,  # kernel E: the shifted basis, one launch
+    "msm5_pt_dbl": 0,        # kernel E: k doublings (v8's triangle)
     "msm5_tree_up0": 0,      # kernel F
     "msm5_tree_up": 0,       # kernel G
     "msm5_tree_down": 0,     # kernel H

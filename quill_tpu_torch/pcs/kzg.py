@@ -211,22 +211,24 @@ class KZG:
                 for (_, x), y, c in zip(polys_xs, ys, comms)]
 
     def _quotients(self, polys_xs: list) -> list:
-        """(y, q) per opening, input order.  Device vectors with x != 0,
-        grouped by their count of 2^16-element chunks, batch through
-        `engine.quotient.quotient_many_device` (kernel M on the card);
-        everything else takes per-job `engine.quotient_by_linear`
-        (identical results)."""
+        """(y, q) per opening, input order.  Device vectors with x != 0
+        go, in input order, through `engine.quotient.quotient_many_device`
+        (kernel M on the card, which takes mixed lengths in one launch and
+        splits at MAX_JOBS); everything else takes per-job
+        `engine.quotient_by_linear` (identical results).  The JAX copy
+        groups the device jobs by their count of 2^16-element chunks, for
+        its fixed XLA shapes."""
         from ..engine.device import TVec
-        from ..engine.quotient import CHUNK, quotient_many_device
+        from ..engine.quotient import quotient_many_device
 
         results: list = [None] * len(polys_xs)
-        groups: dict = {}
+        idxs = []
         for i, (poly, x) in enumerate(polys_xs):
             if isinstance(poly, TVec) and int(x) % R != 0:
-                groups.setdefault(-(-poly.length // CHUNK), []).append(i)
+                idxs.append(i)
             else:
                 results[i] = self.engine.quotient_by_linear(poly, x)
-        for idxs in groups.values():
+        if idxs:
             outs = quotient_many_device(self.engine,
                                         [polys_xs[i] for i in idxs])
             for i, out in zip(idxs, outs):

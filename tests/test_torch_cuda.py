@@ -257,24 +257,25 @@ def test_kernels_c_d_read_nothing_back(dev):
 
 
 def test_kernels_e_to_h_match_plain(dev):
-    """E (both modes, and the doubling ladder), F, G and H on the card
-    against their plain twins, on a small tau CRS's shifted basis; then the
-    small-route MSM against kernels C and D."""
+    """E (both modes, the doubling and the shifted basis), F, G and H on
+    the card against their plain twins, on a small tau CRS's shifted basis;
+    then the small-route MSM against kernels C and D."""
     from quill_tpu_torch.ec import msm5
 
     pts = [curve.g1_generator().scalar_mul(k + 2).to_affine()
            for k in range(256)]
     pts[7] = curve.Affine(curve.Fq(0), curve.Fq(0), infinity=True)
     basis = M.load_basis(pts, dev)
-    p, inf = msm5.chunk_points(basis, 0)
+    inf = basis.inf
+    p = msm5.base_points(basis.xy, inf)
     q = msm5.pt_add(p, p)
     flags = torch.arange(p.shape[0], device=dev) % 3 == 0
     assert torch.equal(msm5.pt_add(p, q), msm5.pt_add_plain(p, q))
     assert torch.equal(msm5.pt_add(p, q, flags),
                        msm5.pt_add_plain(p, q, flags))
-    ladder = msm5.shift_ladder(p)
-    assert torch.equal(ladder, msm5.shift_ladder(p, plain=True))
-    sh = msm5.to_affine(ladder.reshape(-1, 3, fd.NLIMB))
+    assert torch.equal(msm5.pt_dbl(q, 5), msm5.pt_dbl_plain(q, 5))
+    sh = msm5.shifted_basis(basis.xy, inf)
+    assert torch.equal(sh, msm5.shifted_basis_plain(basis.xy, inf))
     ints = [[RNG.randrange(R) for _ in range(256)] for _ in range(3)]
     scalars = [fd.from_ints(v, fd.FR, dev) for v in ints]
     scs = torch.stack([fd.from_mont(s, fd.FR) for s in scalars])
@@ -289,6 +290,95 @@ def test_kernels_e_to_h_match_plain(dev):
     assert build.LAUNCHES["msm5_tree_up0"] == before + 1
     for s, out in zip(scalars, got):
         assert out == M.msm(basis, s)
+
+
+def _pool_points(n, dev, seed):
+    """n affine points drawn from 256 multiples of G on the card, one in
+    1000 at infinity ((0, 0) with its mask set)."""
+    g = curve.g1_generator()
+    pool, _ = ed.affines_to_tensor(
+        [g.scalar_mul(k + 2).to_affine() for k in range(256)], dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    xy = pool[torch.randint(0, 256, (n,), generator=gen, device=dev)]
+    inf = torch.arange(n, device=dev) % 1000 == 3
+    xy[inf] = 0
+    return M.TorchBasis(xy=xy.contiguous(), inf=inf, length=n)
+
+
+@pytest.mark.parametrize("nwin,wbits", [(20, 13), (16, 16)])
+def test_kernel_e_shifted_basis_matches_plain(dev, nwin, wbits):
+    """The shifted-basis launch on 2^16 points, and on 2^16 + 300 points
+    in chunks of 2^16 (the last one ragged), against its plain twin (the
+    doubling ladder and one batch normalisation), exactly; one launch
+    each."""
+    from quill_tpu_torch.ec import msm5
+
+    basis = _pool_points((1 << 16) + 300, dev, nwin)
+    for n, chunk in ((1 << 16, None), ((1 << 16) + 300, 1 << 16)):
+        xy, inf = basis.xy[:n], basis.inf[:n]
+        before = build.LAUNCHES["msm5_shifted_basis"]
+        got = msm5.shifted_basis(xy, inf, nwin, wbits, chunk)
+        assert build.LAUNCHES["msm5_shifted_basis"] == before + 1
+        assert got.shape == (nwin * n, 2, fd.NLIMB)
+        assert torch.equal(got, msm5.shifted_basis_plain(xy, inf, nwin,
+                                                         wbits, chunk))
+
+
+def test_shifted_basis_reads_nothing_back(dev):
+    """The small route's shifted basis of two chunks (one launch, cached
+    per chunk) and v6's over 300 points build under sync debug mode
+    "error": no readback, no blocking copy, no plain-torch product."""
+    from quill_tpu_torch.ec import msm5, msm6
+
+    basis = _pool_points((1 << 16) + 300, dev, 9)
+    msm5.shifted_basis(basis.xy[:64], basis.inf[:64])  # builds the library
+    msm6.shifted(_pool_points(64, dev, 1), 64)
+    torch.cuda.synchronize()
+    before = build.LAUNCHES["msm5_shifted_basis"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sh0 = msm5.shifted(basis, 0)
+        sh1 = msm5.shifted(basis, 1)
+        v6 = msm6.shifted(basis, 300)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert build.LAUNCHES["msm5_shifted_basis"] == before + 2
+    assert torch.equal(torch.cat((sh0, sh1)), msm5.shifted_basis_plain(
+        basis.xy, basis.inf, chunk=1 << 16))
+    assert torch.equal(v6.reshape(-1, 2, fd.NLIMB), msm5.shifted_basis_plain(
+        basis.xy[:1 << 16], basis.inf[:1 << 16], msm6.NWIN, msm6.WBITS))
+
+
+def test_triangle_doubling_matches_add_chains(dev, monkeypatch):
+    """k doublings in one launch against k kernel E adds of a point to
+    itself (as points: the formulas differ) and against the plain twin
+    (the same triples), the identity included; v8's triangle makes 3
+    adds and 1 doubling launch, and gives the points it gave with 8 adds
+    in place of the doubling launch."""
+    from quill_tpu_torch.ec import msm5, msm8
+
+    def chain(x, k):
+        for _ in range(k):
+            x = msm5.pt_add(x, x)
+        return x
+
+    pool = _pool_points(500, dev, 3)
+    p = msm5.base_points(pool.xy, pool.inf)
+    p[0] = ed.identity(1, dev)[0]
+    for k in (1, 8):
+        got = msm5.pt_dbl(p, k)
+        assert bool(ed.points_equal(got, chain(p, k)).all())
+        assert torch.equal(got, msm5.pt_dbl_plain(p, k))
+    n = msm8.NWIN * msm8.NBUCK
+    pool = _pool_points(n, dev, 4)
+    acc = msm5.base_points(pool.xy, pool.inf)
+    before = dict(build.LAUNCHES)
+    got = msm8.triangle(acc)
+    assert build.LAUNCHES["msm5_pt_add"] == before["msm5_pt_add"] + 3
+    assert build.LAUNCHES["msm5_pt_dbl"] == before["msm5_pt_dbl"] + 1
+    monkeypatch.setattr(msm5, "pt_dbl", chain)
+    assert bool(ed.points_equal(got, msm8.triangle(acc)).all())
 
 
 def test_kernel_i_matches_plain(dev, monkeypatch):
@@ -420,7 +510,7 @@ def test_kernel_l_matches_plain(dev, field):
     assert fd.to_ints(got, f) == [x * y % mod for x, y in zip(xs, ys)]
 
 
-@pytest.mark.parametrize("run", [1, 7, 32])
+@pytest.mark.parametrize("run", [1, 7, 32, 64, 128])
 def test_kernel_m_matches_plain(dev, run):
     """Kernel M on one batch of jobs whose lengths cross its tiles (128
     runs of `run` coefficients) against the plain twin and the host; 17
@@ -449,6 +539,38 @@ def test_kernel_m_matches_plain(dev, run):
     assert build.LAUNCHES["quotient"] == before + 2
     for (y, q), (y2, q2) in zip(got, Q.quotient_many_plain(jobs)):
         assert y == y2 and torch.equal(q.rows(), q2.rows())
+
+
+def test_kernel_m_mixed_batch_one_launch(dev):
+    """One open_many batch of device jobs with 1, 2 and 3 chunks of 2^16
+    coefficients and x = 0 among them: kernel M takes the x != 0 jobs in
+    one launch (the JAX copy's grouping would take three), each equal to
+    the plain twin and the host."""
+    import types
+
+    from quill_tpu_torch.engine import quotient as Q
+    from quill_tpu_torch.engine.device import TorchEngine
+    from quill_tpu_torch.engine.host import HostEngine
+    from quill_tpu_torch.pcs.kzg import KZG
+
+    eng = TorchEngine("cuda", min_device_size=1)
+    lengths = [(1 << 16) + 5, 3000, (2 << 16) + 9, 7, 1 << 17]
+    xs = [RNG.randrange(1, R) for _ in lengths]
+    xs[3] = 0
+    cs = [_rand(n, dev) for n in lengths]
+    jobs = [(eng._wrap(c, n), x) for c, n, x in zip(cs, lengths, xs)]
+    before = build.LAUNCHES["quotient"]
+    got = KZG._quotients(types.SimpleNamespace(engine=eng), jobs)
+    assert build.LAUNCHES["quotient"] == before + 1
+    dev_jobs = [j for j in jobs if j[1] != 0]
+    for (y, q), (y2, q2) in zip([g for g, j in zip(got, jobs) if j[1]],
+                                Q.quotient_many_plain(dev_jobs)):
+        assert y == y2 and torch.equal(q.rows(), q2.rows())
+    host = HostEngine()
+    for c, x, (y, q) in zip(cs, xs, got):
+        hy, hq = host.quotient_by_linear(fd.to_ints(c), x)
+        assert y == hy
+        assert [int(v) for v in eng.vec_to_ints(q)] == [int(v) for v in hq]
 
 
 @pytest.mark.parametrize("case", ["random", "equal", "runs"])

@@ -100,3 +100,70 @@ def test_g1_adds(lib):
     for o, x, y in zip(ed.proj_to_jacobians(got), la, ra):
         assert o == x.add(y)
     assert bool((got == ed.aadd(a, b)).all())
+
+
+def test_g1_dbl(lib):
+    """`g1_dbl` (algorithm 9) against `g1_add(p, p)` and the host curve's
+    doubling as points, the identity included, and the plain twin
+    `ed.pdbl` triple for triple."""
+    lib.q_g1_dbl.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
+    lib.q_g1_dbl.restype = None
+    g = curve.g1_generator()
+    rng = np.random.default_rng(4)
+    pts = [g.scalar_mul(int(k)) for k in rng.integers(2, 1 << 60, size=6)]
+    pts += [g, curve.Jacobian.identity(curve.Fq(1))]
+    p = ed.jacobians_to_proj(pts)
+    n = len(pts)
+    out = np.zeros((n, 3, 8), dtype=np.int32)
+    lib.q_g1_dbl(p.numpy().ctypes.data, out.ctypes.data, n)
+    got = torch.from_numpy(out)
+    added = _call(lib.q_g1_add, p, p, (n, 3, 8))
+    assert bool(ed.points_equal(got, added).all())
+    for o, a in zip(ed.proj_to_jacobians(got), pts):
+        assert o == a.double()
+    assert bool((got[-1, 1] != 0).any()) and not bool(got[-1, 2].any())
+    assert bool((got == ed.pdbl(p)).all())
+
+
+@pytest.mark.parametrize("nwin,wbits", [(20, 13), (16, 16)])
+@pytest.mark.parametrize("chunk", [16, None])
+def test_shifted_basis_emulation(lib, nwin, wbits, chunk):
+    """The shifted-basis thread body (`csrc/ladder.cuh`, run by
+    `q_shifted_basis` for every point) on 40 points, three at infinity, in
+    chunks of 16 (the last one ragged) or one: the same integers as the
+    plain twin (the doubling ladder and one batch normalisation), and rows
+    2^(wbits w) P_i by the host curve (the generator's where P_i is at
+    infinity)."""
+    from quill_tpu_torch.ec import msm5
+
+    fn = lib.q_shifted_basis
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+                   ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = None
+    g = curve.g1_generator()
+    rng = np.random.default_rng(nwin)
+    pts = [g.scalar_mul(int(k)) for k in rng.integers(2, 1 << 60, size=40)]
+    inf = [i in (0, 17, 39) for i in range(40)]
+    aff, _ = ed.affines_to_tensor([p.to_affine() for p in pts])
+    mask = torch.tensor(inf)
+    aff[mask] = 0
+    n = len(pts)
+    step = n if chunk is None else chunk
+    out = np.zeros((nwin * n, 2, 8), dtype=np.int32)
+    inf8 = mask.to(torch.uint8)
+    fn(aff.numpy().ctypes.data, inf8.numpy().ctypes.data, n, step, nwin,
+       wbits, out.ctypes.data)
+    got = torch.from_numpy(out)
+    assert torch.equal(got, msm5.shifted_basis_plain(aff, mask, nwin, wbits,
+                                                     chunk))
+    vals = fd.to_ints(got.reshape(-1, 8), fd.FQ)
+    for i in (0, 1, 17, 20, 39):
+        c0 = i - i % step
+        nc = min(step, n - c0)
+        base = g if inf[i] else pts[i]
+        for w in (0, 1, nwin - 1):
+            row = c0 * nwin + w * nc + i - c0
+            want = base.scalar_mul(1 << (wbits * w)).to_affine()
+            assert (vals[2 * row], vals[2 * row + 1]) == (want.x.v,
+                                                          want.y.v), (i, w)

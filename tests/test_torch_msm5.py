@@ -180,7 +180,7 @@ def test_msm_many_batches_in_padded_groups(basis, points, monkeypatch):
 def test_shifted_basis_entries(points):
     pts = points[:8]
     root = M.load_basis(pts, "cpu")
-    sh = msm5.build_shifted(root, 0)
+    sh = msm5.shifted(root, 0)
     n = len(pts)
     assert sh.shape == (msm5.NWIN * n, 2, fd.NLIMB)
     vals = fd.to_ints(sh.reshape(-1, fd.NLIMB), fd.FQ)

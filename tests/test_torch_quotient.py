@@ -11,9 +11,10 @@ M's plain twin and its host emulation) against the JAX package.
   lengths across kernel M's tiles (4,096 coefficients; the JAX call above
   covers a whole chunk);
 - `KZG._quotients` sends device vectors with x != 0 through
-  `quotient_many_device`, grouped by chunk count, and x = 0 and host
-  vectors through `quotient_by_linear`; `KZG.open_many` gives the JAX
-  host prover's opening proofs;
+  `quotient_many_device`, all in one call in input order (split at
+  MAX_JOBS inside it), and x = 0 and host vectors through
+  `quotient_by_linear`; `KZG.open_many` gives the JAX host prover's
+  opening proofs;
 - kernel M's phases (`csrc/quotient.cuh`), run by the host emulation
   `q_quotient_blocked` (`csrc/bn254_host.cpp`, built with g++) for several
   tile shapes and lengths, against the plain twin; skips only without g++.
@@ -108,10 +109,10 @@ def test_matches_host_at_odd_lengths(n):
         assert [int(v) for v in eng.vec_to_ints(q)] == wq
 
 
-def test_quotients_route(monkeypatch):
-    """Device vectors with x != 0 batch by chunk count, in input order;
-    x = 0 and host vectors take the per-job path; all equal the host."""
-    eng = TorchEngine("cpu", min_device_size=64)
+def _route(eng, lengths, xs, monkeypatch):
+    """KZG._quotients on the given jobs -> (the lengths of each
+    quotient_many_device call, the per-job calls), every result checked
+    against the host."""
     batches, single = [], []
     real_many, real_one = Q.quotient_many_device, eng.quotient_by_linear
 
@@ -125,18 +126,54 @@ def test_quotients_route(monkeypatch):
 
     monkeypatch.setattr(Q, "quotient_many_device", many)
     monkeypatch.setattr(eng, "quotient_by_linear", one)
-    lengths = [100, (1 << 16) + 5, 200, 10, 100]
-    xs = [XS[0], XS[1], XS[2], XS[0], 0]
     polys = [_ints(30 + i, n) for i, n in enumerate(lengths)]
     jobs = [(eng.vec_from_ints(p), x) for p, x in zip(polys, xs)]
-    assert not isinstance(jobs[3][0], TVec)
     got = KZG._quotients(types.SimpleNamespace(engine=eng), jobs)
-    assert batches == [[100, 200], [(1 << 16) + 5]]
-    assert single == [(10, XS[0]), (100, 0)]
     for p, x, (y, q) in zip(polys, xs, got):
         wy, wq = _host_quotient(p, x)
         assert y == wy
         assert [int(v) for v in eng.vec_to_ints(q)] == wq
+    return batches, single
+
+
+def test_quotients_route(monkeypatch):
+    """Device vectors with x != 0 make one batch in input order, whatever
+    their chunk counts; x = 0 and host vectors take the per-job path; all
+    equal the host."""
+    eng = TorchEngine("cpu", min_device_size=64)
+    lengths = [100, (1 << 16) + 5, 200, 10, 100]
+    xs = [XS[0], XS[1], XS[2], XS[0], 0]
+    batches, single = _route(eng, lengths, xs, monkeypatch)
+    assert batches == [[100, (1 << 16) + 5, 200]]
+    assert single == [(10, XS[0]), (100, 0)]
+    assert eng.quotient_batches == {(100, (1 << 16) + 5, 200): 1}
+
+
+def test_quotients_route_splits_at_max_jobs(monkeypatch):
+    """MAX_JOBS + 2 device jobs of mixed lengths: one call, two kernel M
+    batches (MAX_JOBS, then 2) in input order."""
+    eng = TorchEngine("cpu", min_device_size=64)
+    lengths = [64 + 7 * i for i in range(Q.MAX_JOBS + 2)]
+    xs = [(XS[i % 3] + i) % R for i in range(len(lengths))]
+    batches, single = _route(eng, lengths, xs, monkeypatch)
+    assert batches == [lengths] and single == []
+    assert eng.quotient_batches == {tuple(lengths[:Q.MAX_JOBS]): 1,
+                                    tuple(lengths[Q.MAX_JOBS:]): 1}
+
+
+@pytest.mark.parametrize("lengths,run", [
+    ([1], 32), ([1 << 16] * 8, 32), ([(1 << 21) - 64], 32),
+    ([(1 << 21) - 63], 64), ([1 << 18, (1 << 18) - 1] * 4, 64),
+    ([1 << 20, (1 << 20) - 1] * 4, 128), ([1 << 22, (1 << 22) - 1] * 2, 128),
+    ([1] * 16, 32)])
+def test_run_for_batch(lengths, run):
+    """Kernel M's run: the longest of RUNS that leaves MIN_RUNS runs (a
+    job's last run may be short), else the shortest."""
+    assert Q.run_for(lengths) == run
+    runs = sum(-(-n // run) for n in lengths)
+    assert runs >= Q.MIN_RUNS or run == Q.RUNS[-1]
+    if run != Q.RUNS[0]:
+        assert sum(-(-n // (2 * run)) for n in lengths) < Q.MIN_RUNS
 
 
 def test_open_many_matches_jax_host():
@@ -167,8 +204,8 @@ def lib():
         pytest.skip("g++ is not installed")
     lib = ctypes.CDLL(str(build.build_host()))
     lib.q_quotient_blocked.argtypes = [
-        ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_long, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
+        ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p]
     lib.q_quotient_blocked.restype = None
     return lib
 
@@ -176,15 +213,15 @@ def lib():
 @pytest.mark.parametrize("n", [1, 2, 383, 4097, 9001])
 @pytest.mark.parametrize("blk,run", [(1, 1), (4, 3), (128, 1), (128, 32)])
 def test_blocked_phases_match_twin(lib, blk, run, n):
-    """Kernel M's decomposition: tiles of blk runs of `run` coefficients."""
+    """Kernel M's decomposition: tiles of blk runs of `run` coefficients,
+    each run's map scanned from the top, then the recurrence again."""
     c = fd.from_ints(_ints(n * 7 + run, n))
     x = (n * 1000003 + blk) % R
-    tabs = Q.tables([x], "cpu")[0].contiguous()
+    xw = torch.tensor(fd.mont_words(x), dtype=torch.int64).to(torch.int32)
     out = torch.zeros_like(c)
     y = torch.zeros(fd.NLIMB, dtype=torch.int32)
-    lib.q_quotient_blocked(c.data_ptr(), n, tabs[0].data_ptr(),
-                           tabs[1].data_ptr(), blk, run, out.data_ptr(),
-                           y.data_ptr())
+    lib.q_quotient_blocked(c.data_ptr(), n, xw.data_ptr(), blk, run,
+                           out.data_ptr(), y.data_ptr())
     ys, outs = Q.scan_plain([c], [x])
     assert fd.FR.unmont(fd.tensor_to_ints(y[None])[0]) == ys[0]
     assert torch.equal(out, outs[0])
