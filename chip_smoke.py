@@ -32,10 +32,15 @@ Phases, any failure exits non-zero:
    of ~2^22 and 8 of ~2^18 coefficients; kernel E's shifted basis of one
    2^16-point chunk at 20 windows of 13 bits and at 16 of 16, of two
    chunks in one launch at (20, 13) and of 2^18 points at (16, 16), and
-   its doubling at v8's triangle; kernel E's v8 collect mode on one v8
-   chunk); the 2^18-point MSMs also against the native host MSM; the
-   small-route MSM of 4 x 2^16 points, v6 MSMs of 2^18 and 2^20 points and
-   a v8 MSM of 2^22 points against kernels C and D on the same scalars;
+   its doubling at v8's triangle; kernels G and H one and two levels a
+   launch on one small-route batch's 2,621,440 leaf pairs, the fused top at
+   the batch's top level and its reduce mode on the collect's and v6's
+   reductions, each with `torch.equal`, and the whole prefix tree against
+   the chain of one-level launches, both timed; kernel E's v8 collect mode
+   on one v8 chunk); the 2^18-point MSMs also against the native host MSM;
+   the small-route MSM of 4 x 2^16 points (its launches logged), v6 MSMs
+   of 2^18 and 2^20 points and a v8 MSM of 2^22 points against kernels C
+   and D on the same scalars;
 5. field bench (`python -m quill_tpu_torch.bench_field`): kernel L's
    products and kernel E's elementwise adds against x y mod p, the host
    curve and their plain twins, and their rates on the card;
@@ -441,37 +446,26 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     x1 = msm5.tree_up0(leaves)
     err_f = points_err(x1, msm5.tree_up0_plain(leaves))
     check(err_f == 0, "kernel F disagrees with its plain twin")
-    x2 = msm5.tree_up(x1)
-    err_g = points_err(x2, msm5.tree_up_plain(x1))
-    check(err_g == 0, "kernel G disagrees with its plain twin")
-    err_h = points_err(msm5.tree_down(x2, x1), msm5.tree_down_plain(x2, x1))
-    check(err_h == 0, "kernel H disagrees with its plain twin")
-    k1, k2 = x1.shape[0], x2.shape[0]
-    for name, src, fn, plain, products, nbytes, shape, err in (
-            ("msm5_tree_up0", "quill_tpu/ec/msm5.py:245 (_up0_kernel)",
-             lambda: msm5.tree_up0(leaves),
-             lambda: msm5.tree_up0_plain(leaves), 9 * k1,
-             2 * k1 * AFF + k1 * PT,
-             f"{k1} affine leaf pairs (4 MSMs x 20 windows x {n} points)",
-             err_f),
-            ("msm5_tree_up", "quill_tpu/ec/msm3.py:258 (_up_kernel)",
-             lambda: msm5.tree_up(x1), lambda: msm5.tree_up_plain(x1),
-             12 * k2, 3 * k2 * PT, f"first projective level, {k2} adds",
-             err_g),
-            ("msm5_tree_down", "quill_tpu/ec/msm3.py:267 (_down_kernel)",
-             lambda: msm5.tree_down(x2, x1),
-             lambda: msm5.tree_down_plain(x2, x1), 12 * k2, 4 * k2 * PT,
-             f"finest down level, {k2} adds, {2 * k2} outputs", err_h)):
-        t_k, t_p = cuda_ms(fn), cuda_ms(plain, reps=1)
-        log(f"kernel {name}: {shape}: {t_k:.3f} ms vs plain {t_p:.3f} ms")
-        record(name, "quill_tpu_torch/csrc/msm5.cu", src, products, nbytes,
-               shape=shape, max_abs_err=err, ms=t_k, plain_ms=t_p)
-    del leaves, x1, x2
+    tree_recs, tree_times = tree_kernels(leaves, x1, card)
+    k1 = x1.shape[0]
+    t_k, t_p = (cuda_ms(lambda: msm5.tree_up0(leaves)),
+                cuda_ms(lambda: msm5.tree_up0_plain(leaves), reps=1))
+    shape = f"{k1} affine leaf pairs (4 MSMs x 20 windows x {n} points)"
+    log(f"kernel msm5_tree_up0: {shape}: {t_k:.3f} ms vs plain {t_p:.3f} ms")
+    record("msm5_tree_up0", "quill_tpu_torch/csrc/msm5.cu",
+           "quill_tpu/ec/msm5.py:245 (_up0_kernel)", 9 * k1,
+           2 * k1 * AFF + k1 * PT, shape=shape, max_abs_err=err_f, ms=t_k,
+           plain_ms=t_p)
+    records.extend(tree_recs)
+    del leaves, x1
 
     # the whole small-route MSM against kernels C and D, same 4 vectors
     bs_own = M.slice_basis(own, n)
     bs_cd = M.slice_basis(kzg._basis, n)
+    before = dict(build.LAUNCHES)
     got = msm5.msm_batch(bs_own, s_list)
+    per_call = {k: v - before[k] for k, v in build.LAUNCHES.items()
+                if v != before[k]}
     want = [M.msm(bs_cd, t) for t in s_list]
     check(all(g == w for g, w in zip(got, want)),
           "the small-route MSM disagrees with kernels C and D")
@@ -479,14 +473,152 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     cd_ms = cuda_ms(lambda: [M.msm(bs_cd, t) for t in s_list])
     log(f"4 MSMs of {n} points: small route (one batch) {small_ms:.3f} ms, "
         f"kernels C + D (one at a time) {cd_ms:.3f} ms; equal")
-    for rec in records[-5:]:       # E, its shifted basis, F, G, H
+    log("launches of one small-route call (the first on its basis, so "
+        "with its shifted basis): " + json.dumps(per_call))
+    # E, its shifted basis, F, G, H, the top, its reduce mode
+    for rec in records[-7:]:
         rec["small_route_batch_ms"] = small_ms
         rec["cd_same_4_msms_ms"] = cd_ms
+    records[-2]["launches_per_small_route_call"] = per_call
+    records[-2].update(tree_times)
     records += v6_kernels(kzg, kzg_big, card)
     records.append(field_kernel(dev, rng, card))
     records.append(quotient_kernel(dev, rng, card))
     records += v8_kernels(kzg_big, card)
     return records
+
+
+def top_adds(w: int) -> int:
+    """Adds of the fused top over a level of w points: each level's pairs up
+    (an odd level padded) and the same pairs' prefixes down."""
+    adds, s = 0, w
+    while s > 1:
+        s = (s + 1) // 2
+        adds += s
+    return 2 * adds
+
+
+def tree_kernels(leaves, x1, card):
+    """Kernels G and H and the fused top against their plain twins with
+    `torch.equal`, at the small route's shapes: one- and two-level G on the
+    leaf pairs x1 (one batch of 4 x 20 x 2^16 leaves), one- and two-level H
+    back to them, the top (tree mode) at the path's top level, its reduce
+    mode on the collect's 4 runs of 2^14 terms and on v6's 2^16 query sums;
+    then the whole `prefix_tree` against the chain of one-level launches
+    (`msm5.prefix_tree_chain`), both timed, and the collect's reduction
+    against its one-level halving.  -> (records of G, H, the top and the
+    reduce mode; the tree's timings)."""
+    import torch
+
+    from quill_tpu_torch.ec import msm5
+
+    out = []
+
+    def held(name, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} disagrees with its plain twin")
+        return 0
+
+    def rec(name, replaces, adds, nbytes, shape, fn, plain, **kw):
+        ms, plain_ms = cuda_ms(fn), cuda_ms(plain, reps=1)
+        log(f"kernel {name}: {shape}: {ms:.3f} ms vs plain {plain_ms:.3f} "
+            f"ms")
+        out.append(dict(name=name, route="cuda",
+                        source="quill_tpu_torch/csrc/msm5.cu + "
+                               "quill_tpu_torch/csrc/tree.cuh",
+                        replaces=replaces, shape=shape, max_abs_err=0,
+                        ms=ms, plain_ms=plain_ms,
+                        **bound(card, 12 * adds, nbytes), library_ms=None,
+                        **kw))
+
+    k1 = x1.shape[0]
+    x2, x3 = msm5.tree_up2(x1)
+    held("two-level G", (x2, x3), msm5.tree_up2_plain(x1))
+    held("one-level G", msm5.tree_up(x1), msm5.tree_up_plain(x1))
+    k2, k3 = x2.shape[0], x3.shape[0]
+    one_g = cuda_ms(lambda: msm5.tree_up(x1))
+    log(f"kernel G one level, {k2} adds: {one_g:.3f} ms")
+    rec("msm5_tree_up", "quill_tpu/ec/msm3.py:258 (_up_kernel)", k2 + k3,
+        (k1 + k2 + k3) * PT, f"two levels on the leaf pairs: {k1} -> {k2} "
+        f"-> {k3} points, {k2 + k3} adds",
+        lambda: msm5.tree_up2(x1), lambda: msm5.tree_up2_plain(x1),
+        one_level_shape=f"{k2} adds", one_level_ms=one_g,
+        one_level_bound_ms=bound(card, 12 * k2, 3 * k2 * PT)["bound_ms"])
+    held("two-level H", msm5.tree_down2(x3, x2, x1),
+         msm5.tree_down2_plain(x3, x2, x1))
+    held("one-level H", msm5.tree_down(x2, x1), msm5.tree_down_plain(x2, x1))
+    one_h = cuda_ms(lambda: msm5.tree_down(x2, x1))
+    log(f"kernel H one level, {k2} adds: {one_h:.3f} ms")
+    rec("msm5_tree_down", "quill_tpu/ec/msm3.py:267 (_down_kernel)", k1 - k3,
+        (k3 + k2 // 2 + k1 // 2 + k1) * PT,
+        f"two levels back to the leaf pairs: {k3} -> {k2} -> {k1} prefixes, "
+        f"{k1 - k3} adds", lambda: msm5.tree_down2(x3, x2, x1),
+        lambda: msm5.tree_down2_plain(x3, x2, x1),
+        one_level_shape=f"finest level, {k2} adds, {k1} outputs",
+        one_level_ms=one_h,
+        one_level_bound_ms=bound(card, 12 * k2, 4 * k2 * PT)["bound_ms"])
+    del x2, x3
+    levels = [x1]
+    while levels[-1].shape[0] > msm5.TOP:
+        levels += msm5.tree_up2(levels[-1])
+    top = levels[-1].contiguous()
+    w = top.shape[0]
+    del levels
+    held("the fused top", msm5.tree_top(top), msm5.tree_top_plain(top))
+    rec("msm5_tree_top", "quill_tpu/ec/msm3.py:361 (_k_treetop_up) and "
+        ":391 (_k_treetop_down), XLA in the TPU build, with the "
+        ":258 (_up_kernel) and :267 (_down_kernel) launches of their "
+        "levels", top_adds(w), 2 * w * PT,
+        f"the path's top level, {w} points, up to one and back down",
+        lambda: msm5.tree_top(top), lambda: msm5.tree_top_plain(top))
+    terms = x1[:4 * 2 * msm5.NBUCK].contiguous()
+    v6 = x1[:1 << 16].contiguous()
+    group = 2 * msm5.NBUCK
+    held("the fused top's reduce mode",
+         msm5.tree_reduce(terms, group), msm5.tree_reduce_plain(terms, group))
+    held("the fused top's reduce mode (v6)", msm5.tree_reduce(v6, 1 << 16),
+         msm5.tree_reduce_plain(v6, 1 << 16))
+
+    def halving(x, rows):
+        while x.shape[0] > rows:
+            x = msm5.tree_up(x)
+        return x
+
+    chain_ms = cuda_ms(lambda: halving(terms, 4))
+    v6_ms = cuda_ms(lambda: msm5.tree_reduce(v6, 1 << 16))
+    v6_chain_ms = cuda_ms(lambda: halving(v6, 1))
+    log(f"collect's reduction one level a launch: {chain_ms:.3f} ms; v6's "
+        f"reduce_sum on 2^16 points {v6_ms:.3f} ms, one level a launch "
+        f"{v6_chain_ms:.3f} ms")
+    rec("msm5_tree_reduce", "quill_tpu/ec/msm3.py:258 (_up_kernel, one "
+        "launch a level) in the collect's pairwise reduction (msm3.py:557 "
+        "_k_collect) and v6's (quill_tpu/ec/msm6k.py:255-279)",
+        terms.shape[0] - 4, (terms.shape[0] + 4) * PT,
+        f"the collect's 4 runs of {group} terms, two launches",
+        lambda: msm5.tree_reduce(terms, group),
+        lambda: msm5.tree_reduce_plain(terms, group),
+        one_level_chain_ms=chain_ms, v6_shape="v6's reduce_sum, 2^16 points",
+        v6_ms=v6_ms, v6_one_level_chain_ms=v6_chain_ms,
+        v6_bound_ms=bound(card, 12 * ((1 << 16) - 1),
+                          ((1 << 16) + 1) * PT)["bound_ms"])
+    del terms, v6
+    got = msm5.prefix_tree(leaves)
+    chain = msm5.prefix_tree_chain(leaves, msm5.tree_up0, msm5.tree_up,
+                                   msm5.tree_down)
+    check(torch.equal(got, chain), "prefix_tree disagrees with the chain of "
+          "one-level launches")
+    del got, chain
+    times = dict(
+        prefix_tree_ms=cuda_ms(lambda: msm5.prefix_tree(leaves)),
+        prefix_tree_chain_ms=cuda_ms(lambda: msm5.prefix_tree_chain(
+            leaves, msm5.tree_up0, msm5.tree_up, msm5.tree_down)),
+        prefix_tree_top_width=w)
+    log(f"prefix_tree, {leaves.shape[0]} leaves: "
+        f"{times['prefix_tree_ms']:.3f} ms; the chain of one-level launches "
+        f"{times['prefix_tree_chain_ms']:.3f} ms; equal triples")
+    return out, times
 
 
 FERMAT_INV = 256 + 110     # products of x^(p-2): squarings, set bits of p-2

@@ -15,6 +15,7 @@
 #include "quotient.cuh"
 #include "seg_scan.cuh"
 #include "sumcheck.cuh"
+#include "tree.cuh"
 
 using namespace bn254;
 
@@ -482,5 +483,105 @@ int q_sumcheck_round_blocked(const ScParams* p, int nt, int slots,
 }
 
 long q_sumcheck_params_size() { return (long)sizeof(ScParams); }
+
+// Kernel G (csrc/msm5.cu: tree_up_kernel<L, lanes>) emulated block by
+// block: the staging maps and work items of tree.cuh, each phase's items in
+// order, added by g1_add (an add a thread) or g1_add_split (the six lanes'
+// steps).  x: (m, 24); o1, o2 as quill_tree_up2 (L = 2) or quill_tree_up (L
+// = 1, m even, o2 unused).
+void q_tree_up_blocked(int L, int lanes, const uint32_t* x, long m,
+                       uint32_t* o1, uint32_t* o2) {
+  const int S = tree_span(L, lanes);
+  std::vector<uint32_t> sh(tree_words(S, false));
+  for (long long b = 0; b < tree_blocks(S, m); ++b) {
+    for (int i = 0; i < tree_pieces(S); ++i) up_load(S, x, m, b, i, sh.data());
+    for (int phase = 1; phase <= L; ++phase)
+      for (int k = 0; k < S >> phase; ++k) {
+        if (!up_item_live(S, m, b, phase, k)) continue;
+        G1P p, q;
+        up_item_operands(sh.data(), phase, k, &p, &q);
+        up_item_store(sh.data(), phase, k,
+                      lanes ? g1_add_split(p, q) : g1_add(p, q));
+      }
+    for (int i = 0; i < up_store_pieces(L, S); ++i)
+      up_store(S, o1, o2, m, b, i, sh.data());
+  }
+}
+
+// Kernel H (tree_down_kernel<L, lanes>) emulated: p, u1, u0, m, out as
+// quill_tree_down2 (L = 2) or quill_tree_down (L = 1: u1 unused, u0 the
+// level below, m = 2k).
+void q_tree_down_blocked(int L, int lanes, const uint32_t* p,
+                         const uint32_t* u1, const uint32_t* u0, long m,
+                         uint32_t* out) {
+  const int S = tree_span(L, lanes);
+  std::vector<uint32_t> sh(tree_words(S, false));
+  for (long long b = 0; b < tree_blocks(S, m); ++b) {
+    for (int i = 0; i < tree_pieces(S); ++i)
+      down_load(L, S, p, u1, u0, m, b, i, sh.data());
+    for (int phase = 3 - L; phase <= 2; ++phase)
+      for (int k = 0; k < S >> (3 - phase); ++k) {
+        if (!down_item_live(S, m, b, phase, k)) continue;
+        G1P a, q;
+        down_item_operands(sh.data(), phase, k, &a, &q);
+        down_item_store(sh.data(), phase, k,
+                        lanes ? g1_add_split(a, q) : g1_add(a, q));
+      }
+    for (int i = 0; i < tree_pieces(S); ++i)
+      down_store(S, out, m, b, i, sh.data());
+  }
+}
+
+// 1 where a two-level launch over m points goes by lanes
+int q_tree_lanes(long m) { return tree_lanes(m); }
+
+// The fused top (tree_top_kernel) emulated: `blocks` blocks of w rows, each
+// level's items in order, by g1_add where the kernel gives an add a thread
+// and by g1_add_split (the six lanes' steps) where it gives one a group.
+// tree != 0: one block, out (w, 24) the prefixes; else out (blocks, 24)
+// the spans' sums.  Returns -1 outside the kernel's limits.
+int q_tree_top(const uint32_t* x, int w, long blocks, int tree,
+               uint32_t* out) {
+  if (w < 1 || w > TREE_TOP || (!tree && (w & (w - 1))) ||
+      (tree && blocks != 1))
+    return -1;
+  std::vector<uint32_t> sh(PT_WORDS * top_slots(w));
+  auto add = [](int n, const G1P& p, const G1P& q) {
+    return n > TREE_TOP_LANE_MAX ? g1_add(p, q) : g1_add_split(p, q);
+  };
+  for (long b = 0; b < blocks; ++b) {
+    const uint32_t* src = x + (long long)PT_WORDS * w * b;
+    for (int i = 0; i < 6 * w; ++i) piece_copy(&sh[4 * i], src + 4 * i);
+    int off = 0, s = w, levels = 1;
+    while (s > 1) {
+      const int off1 = off + s + (s & 1), n = (s + 1) >> 1;
+      for (int j = 0; j < n; ++j) {
+        G1P p, q;
+        top_up_operands(sh.data(), off, s, j, &p, &q);
+        top_up_store(sh.data(), off, s, off1, j, add(n, p, q));
+      }
+      off = off1;
+      s = n;
+      ++levels;
+    }
+    if (!tree) {
+      for (int c = 0; c < 6; ++c)
+        piece_copy(out + PT_WORDS * b + 4 * c, &sh[PT_WORDS * off + 4 * c]);
+      continue;
+    }
+    for (int k = levels - 2; k >= 0; --k) {
+      int o, sz;
+      top_level(w, k, &o, &sz);
+      const int o1 = o + sz + (sz & 1), n = (sz + 1) >> 1;
+      for (int j = 0; j < n; ++j) {
+        G1P p, q;
+        top_down_operands(sh.data(), o, o1, j, &p, &q);
+        top_down_store(sh.data(), o, o1, j, add(n, p, q));
+      }
+    }
+    for (int i = 0; i < 6 * w; ++i) piece_copy(out + 4 * i, &sh[4 * i]);
+  }
+  return 0;
+}
 
 }  // extern "C"

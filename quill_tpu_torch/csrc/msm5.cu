@@ -14,24 +14,31 @@
 // F  tree_up0    replaces quill_tpu/ec/msm5.py:_up0_kernel: the affine leaf
 //                level, out[j] = leaf[2j] + leaf[2j+1] with Z1 = Z2 = 1 (9
 //                products instead of 12), projective out.
-// G  tree_up     replaces quill_tpu/ec/msm3.py:_up_kernel: one projective
-//                up-sweep level, out[j] = x[2j] + x[2j+1]; also the collect's
-//                pairwise reduction.
-// H  tree_down   replaces quill_tpu/ec/msm3.py:_down_kernel: one down-sweep
-//                level, out[2j+1] = i[j], out[2j] = i[j] + (-u[2j+1]),
-//                negation being Y -> -Y.
+// G  tree_up     replaces quill_tpu/ec/msm3.py:258 _up_kernel: the up-sweep,
+//                one level (L = 1) or two (L = 2) a launch.
+//    tree_top    replaces the fused top levels (quill_tpu/ec/msm3.py:361
+//                _k_treetop_up, :391 _k_treetop_down): every level of at most
+//                TREE_TOP points up and back down in one block; in reduce
+//                mode the pairwise sums of aligned spans (the collect's and
+//                v6's reductions).
+// H  tree_down   replaces quill_tpu/ec/msm3.py:267 _down_kernel: the down-
+//                sweep, one level or two a launch, P[2j+1] = P'[j], P[2j] =
+//                P'[j] + (-U[2j+1]), negation being Y -> -Y.
 //
 // The TPU kernels worked on (S, 3L, M) tiles of 8-bit limbs in f32 so that
 // a level was a few large dispatches.  Here a point is 24 uint32 words (X,
 // Y, Z, each eight Montgomery limbs, bn254.cuh) and one thread does one
-// complete add.  Bound on the card: integer multiply throughput.  A complete
-// add is 12 CIOS products (9 for F), each 128 32x32->64-bit multiply-adds
-// (a low and a high IMAD) and 8 low products: 3,168 32-bit multiply-adds
-// (2,376 for F), against 224 to 384 bytes read and written: 8 to 11
-// operations a byte, above the card's ~5 int32
-// multiply-adds a byte (132 SMs x 64 a clock against 3.35 TB/s).  Design: the
-// arithmetic is bn254.cuh's, kept in registers; nothing is staged in shared
-// memory, since every byte is read once.
+// complete add at a time.  Bound on the card: integer multiply throughput.
+// A complete add is 12 CIOS products (9 for F), each 128 32x32->64-bit
+// multiply-adds (a low and a high IMAD) and 8 low products: 3,168 32-bit
+// multiply-adds (2,376 for F), against 224 to 384 bytes read and written:
+// 8 to 11 operations a byte, above the card's ~5 int32 multiply-adds a
+// byte (132 SMs x 64 a clock against 3.35 TB/s).  E and F keep everything
+// in registers, since every byte is read once.  G and H stage their spans
+// through shared memory (csrc/tree.cuh has their thread bodies, staging
+// maps and design), so that every global access is a coalesced 16-byte
+// piece and a two-level launch never writes and reads back the level
+// between its two.
 //
 // The shifted basis: one thread a base point, its windows' doublings in
 // registers and their normalisation by Montgomery's trick inside the
@@ -40,6 +47,7 @@
 
 #include "bn254.cuh"
 #include "ladder.cuh"
+#include "tree.cuh"
 
 using namespace bn254;
 
@@ -68,27 +76,198 @@ tree_up0_kernel(const uint32_t* __restrict__ leaves, long long k,
   g1_store(out + 24 * j, g1_add_affine(p, q));
 }
 
-__global__ void __launch_bounds__(MSM5_BLOCK)
-tree_up_kernel(const uint32_t* __restrict__ x, long long k,
-               uint32_t* __restrict__ out) {
-  long long j = (long long)blockIdx.x * MSM5_BLOCK + threadIdx.x;
-  if (j >= k) return;
-  G1P p = g1_load(x + 48 * j);
-  G1P q = g1_load(x + 48 * j + 24);
-  g1_store(out + 24 * j, g1_add(p, q));
+// G's and H's blocks of TREE_NT threads (csrc/tree.cuh): the minimum of
+// resident blocks an SM that ptxas is held to (registers), by measurement
+// (quill_tpu_torch/probe_tree.py --sweep, on an H100): 256 threads and 2
+// blocks give the two-level launches by threads 128 registers, no stack
+// frame and no spills, 16 warps an SM (their 100 KB of shared memory a
+// block allow 2 as well); 128 threads and 4 blocks were 10-15% slower, 1
+// block of 256 (144 registers, 8 warps) ~40%.  By lanes: 106 registers,
+// blocks of 128.  One level: 126.  The fused top (256 threads, one block
+// an SM): 134 registers in tree mode, 128 and an 8-byte stack frame in
+// reduce mode.
+#ifndef TREE_MINB
+#define TREE_MINB 2
+#endif
+
+// Items [0, n) of a phase, one a group of six lanes (g1_add_lanes), in
+// rounds of `groups` groups (five a warp; lanes 30 and 31 and the groups
+// past n add identities, so that every lane meets every __syncwarp):
+// live(k) says whether item k is needed, ops(k, &p, &q) gives its operands
+// and st(k, r) stores its sum, from lane 0 of its group.  scratch: 48 words
+// for each group of six lanes of the block (six a warp).
+template <class Live, class Ops, class Store>
+__device__ __forceinline__ void group_items(int n, int groups,
+                                            uint32_t* scratch, Live live,
+                                            Ops ops, Store st) {
+  const int lane = threadIdx.x & 31, gw = lane / 6, g = lane % 6;
+  const int group = (threadIdx.x >> 5) * 5 + gw;
+  uint32_t* xs = scratch + 48 * ((threadIdx.x >> 5) * 6 + gw);
+  for (int j0 = 0; j0 < n; j0 += groups) {
+    const int k = j0 + group;
+    const bool on = gw < 5 && k < n && live(k);
+    G1P p = g1_identity(), q = p;
+    if (on) ops(k, &p, &q);
+    const G1P r = g1_add_lanes(p, q, g, xs);
+    if (on && g == 0) st(k, r);
+  }
 }
 
-__global__ void __launch_bounds__(MSM5_BLOCK)
-tree_down_kernel(const uint32_t* __restrict__ in,
-                 const uint32_t* __restrict__ u, long long k,
+// G: block b stages level l's rows [S b, S (b + 1)), adds level l + 1's
+// pairs in shared memory and, for L = 2, level l + 2's, and writes both
+// levels out.  By threads (TREE_NT of them, S = 2^L TREE_NT): one add a
+// thread at a time, a barrier after each, so that one add's operands are
+// in registers at a time.  By lanes (TREE_LANE_NT threads, S =
+// TREE_LANE_SPAN, narrow levels): one add a group of six lanes.
+template <int L, bool LANES>
+__global__ void __launch_bounds__(LANES ? TREE_LANE_NT : TREE_NT,
+                                  LANES ? 1 : TREE_MINB)
+tree_up_kernel(const uint32_t* __restrict__ x, long long m,
+               uint32_t* __restrict__ o1, uint32_t* __restrict__ o2) {
+  constexpr int NT = LANES ? TREE_LANE_NT : TREE_NT;
+  constexpr int S = tree_span(L, LANES);
+  extern __shared__ uint4 tree_sh[];
+  uint32_t* sh = reinterpret_cast<uint32_t*>(tree_sh);
+  const long long b = blockIdx.x;
+  for (int i = threadIdx.x; i < tree_pieces(S); i += NT)
+    up_load(S, x, m, b, i, sh);
+  __syncthreads();
+  if (!LANES) {
+    // phase 1's S / 2 items, then phase 2's S / 4, NT a round; one loop, so
+    // that the kernel holds one copy of g1_add's code
+    constexpr int R1 = S / 2 / NT, R = L == 2 ? R1 + S / 4 / NT : R1;
+#pragma unroll 1
+    for (int it = 0; it < R; ++it) {
+      const int phase = it < R1 ? 1 : 2;
+      const int k = (phase == 1 ? it : it - R1) * NT + threadIdx.x;
+      if (up_item_live(S, m, b, phase, k)) up_item(sh, phase, k);
+      __syncthreads();
+    }
+  } else {
+#pragma unroll 1
+    for (int phase = 1; phase <= L; ++phase) {
+      group_items(
+          S >> phase, TREE_LANE_GROUPS, sh + 25 * S,
+          [&](int k) { return up_item_live(S, m, b, phase, k); },
+          [&](int k, G1P* p, G1P* q) {
+            up_item_operands(sh, phase, k, p, q);
+          },
+          [&](int k, const G1P& r) { up_item_store(sh, phase, k, r); });
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < up_store_pieces(L, S); i += NT)
+    up_store(S, o1, o2, m, b, i, sh);
+}
+
+// H: block b stages what level l's prefixes [S b, S (b + 1)) need, then,
+// for L = 2, level l + 1's prefixes and level l's, and writes them out; by
+// threads or by lanes as G.
+template <int L, bool LANES>
+__global__ void __launch_bounds__(LANES ? TREE_LANE_NT : TREE_NT,
+                                  LANES ? 1 : TREE_MINB)
+tree_down_kernel(const uint32_t* __restrict__ p,
+                 const uint32_t* __restrict__ u1,
+                 const uint32_t* __restrict__ u0, long long m,
                  uint32_t* __restrict__ out) {
-  long long j = (long long)blockIdx.x * MSM5_BLOCK + threadIdx.x;
-  if (j >= k) return;
-  G1P p = g1_load(in + 24 * j);
-  G1P q = g1_load(u + 48 * j + 24);
-  q.y = fe_neg<FqM>(q.y);
-  g1_store(out + 48 * j, g1_add(p, q));
-  g1_store(out + 48 * j + 24, p);
+  constexpr int NT = LANES ? TREE_LANE_NT : TREE_NT;
+  constexpr int S = tree_span(L, LANES);
+  extern __shared__ uint4 tree_sh[];
+  uint32_t* sh = reinterpret_cast<uint32_t*>(tree_sh);
+  const long long b = blockIdx.x;
+  for (int i = threadIdx.x; i < tree_pieces(S); i += NT)
+    down_load(L, S, p, u1, u0, m, b, i, sh);
+  __syncthreads();
+  if (!LANES) {
+    // (L = 2) phase 1's S / 4 items, then phase 2's S / 2, NT a round
+    constexpr int R1 = L == 2 ? S / 4 / NT : 0, R = R1 + S / 2 / NT;
+#pragma unroll 1
+    for (int it = 0; it < R; ++it) {
+      const int phase = it < R1 ? 1 : 2;
+      const int k = (phase == 1 ? it : it - R1) * NT + threadIdx.x;
+      if (down_item_live(S, m, b, phase, k)) down_item(sh, phase, k);
+      __syncthreads();
+    }
+  } else {
+#pragma unroll 1
+    for (int phase = 3 - L; phase <= 2; ++phase) {
+      group_items(
+          S >> (3 - phase), TREE_LANE_GROUPS, sh + 25 * S,
+          [&](int k) { return down_item_live(S, m, b, phase, k); },
+          [&](int k, G1P* a, G1P* q) {
+            down_item_operands(sh, phase, k, a, q);
+          },
+          [&](int k, const G1P& r) { down_item_store(sh, phase, k, r); });
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < tree_pieces(S); i += NT)
+    down_store(S, out, m, b, i, sh);
+}
+
+// The fused top: block b sums x's rows [b w, (b + 1) w) up to one point in
+// shared memory (level k at top_level's slots).  Tree mode (one block, any
+// w <= TREE_TOP): then the down-sweep, and out gets the w prefixes.
+// Reduce mode (w a power of two): out[b] gets the sum.  A level's adds go
+// one a thread while there are more than TREE_TOP_LANE_MAX, then one a
+// group of six lanes (g1_add_lanes), whose latency is ~2 products, not 12.
+template <bool TREE>
+__global__ void __launch_bounds__(TREE_TOP_NT)
+tree_top_kernel(const uint32_t* __restrict__ x, int w,
+                uint32_t* __restrict__ out) {
+  extern __shared__ uint4 tree_sh[];
+  uint32_t* sh = reinterpret_cast<uint32_t*>(tree_sh);
+  uint32_t* scratch = sh + PT_WORDS * top_slots(w);
+  const int tid = threadIdx.x;
+  const uint32_t* src = x + (long long)PT_WORDS * w * blockIdx.x;
+  for (int i = tid; i < 6 * w; i += TREE_TOP_NT)
+    piece_copy(sh + 4 * i, src + 4 * i);
+  __syncthreads();
+  // the up-sweep's levels, then (tree mode) the down-sweep's, in one loop
+  // with one add a thread and one a group of lanes, so that the kernel
+  // holds one copy of each
+  const int levels = top_levels(w);
+  const int steps = TREE ? 2 * (levels - 1) : levels - 1;
+#pragma unroll 1
+  for (int step = 0; step < steps; ++step) {
+    const bool up = step < levels - 1;
+    int off, s;
+    top_level(w, up ? step : 2 * (levels - 1) - 1 - step, &off, &s);
+    const int off1 = off + s + (s & 1), n = (s + 1) >> 1;
+    auto ops = [&](int j, G1P* p, G1P* q) {
+      if (up)
+        top_up_operands(sh, off, s, j, p, q);
+      else
+        top_down_operands(sh, off, off1, j, p, q);
+    };
+    auto st = [&](int j, const G1P& r) {
+      if (up)
+        top_up_store(sh, off, s, off1, j, r);
+      else
+        top_down_store(sh, off, off1, j, r);
+    };
+    if (n > TREE_TOP_LANE_MAX) {
+      for (int j = tid; j < n; j += TREE_TOP_NT) {
+        G1P p, q;
+        ops(j, &p, &q);
+        st(j, g1_add(p, q));
+      }
+    } else {
+      group_items(n, TREE_TOP_GROUPS, scratch, [](int) { return true; }, ops,
+                  st);
+    }
+    __syncthreads();
+  }
+  if (!TREE) {
+    int off, s;
+    top_level(w, levels - 1, &off, &s);
+    if (tid < 6)
+      piece_copy(out + (long long)PT_WORDS * blockIdx.x + 4 * tid,
+                 sh + PT_WORDS * off + 4 * tid);
+    return;
+  }
+  for (int i = tid; i < 6 * w; i += TREE_TOP_NT)
+    piece_copy(out + 4 * i, sh + 4 * i);
 }
 
 __global__ void __launch_bounds__(MSM5_BLOCK)
@@ -160,20 +339,110 @@ extern "C" int quill_tree_up0(const void* leaves, long long k, void* out,
   return (int)cudaGetLastError();
 }
 
-// x: (2k, 24); out: (k, 24)
-extern "C" int quill_tree_up(const void* x, long long k, void* out,
-                             void* stream) {
-  if (k <= 0) return 0;
-  tree_up_kernel<<<blocks(k), MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, k, (uint32_t*)out);
+// Once per kernel: dynamic shared memory above the default 48 KB, and the
+// largest shared-memory carveout, so that registers, not the L1 split, set
+// the blocks an SM holds.
+template <class K>
+static int tree_launch_smem(K kernel, int bytes) {
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+}
+
+template <int L, bool LANES>
+static int tree_up_launch(const void* x, long long m, void* o1, void* o2,
+                          void* stream) {
+  constexpr int S = tree_span(L, LANES);
+  const int bytes = 4 * tree_words(S, LANES);
+  static int set = tree_launch_smem(tree_up_kernel<L, LANES>, bytes);
+  if (set != 0) return set;
+  tree_up_kernel<L, LANES><<<(unsigned)tree_blocks(S, m),
+                             LANES ? TREE_LANE_NT : TREE_NT, bytes,
+                             (cudaStream_t)stream>>>(
+      (const uint32_t*)x, m, (uint32_t*)o1, (uint32_t*)o2);
   return (int)cudaGetLastError();
 }
 
-// in: (k, 24) prefixes; u: (2k, 24) the level below; out: (2k, 24)
+template <int L, bool LANES>
+static int tree_down_launch(const void* p, const void* u1, const void* u0,
+                            long long m, void* out, void* stream) {
+  constexpr int S = tree_span(L, LANES);
+  const int bytes = 4 * tree_words(S, LANES);
+  static int set = tree_launch_smem(tree_down_kernel<L, LANES>, bytes);
+  if (set != 0) return set;
+  tree_down_kernel<L, LANES><<<(unsigned)tree_blocks(S, m),
+                               LANES ? TREE_LANE_NT : TREE_NT, bytes,
+                               (cudaStream_t)stream>>>(
+      (const uint32_t*)p, (const uint32_t*)u1, (const uint32_t*)u0, m,
+      (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+template <bool TREE>
+static int tree_top_launch(const void* x, int w, long long blocks, void* out,
+                           void* stream) {
+  if (blocks <= 0) return 0;
+  if (w < 1 || w > TREE_TOP) return (int)cudaErrorInvalidValue;
+  const int bytes = top_bytes(w);
+  static int set = tree_launch_smem(tree_top_kernel<TREE>,
+                                    top_bytes(TREE_TOP));
+  if (set != 0) return set;
+  tree_top_kernel<TREE><<<(unsigned)blocks, TREE_TOP_NT, bytes,
+                          (cudaStream_t)stream>>>(
+      (const uint32_t*)x, w, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// G, one level: x: (2k, 24); out: (k, 24)
+extern "C" int quill_tree_up(const void* x, long long k, void* out,
+                             void* stream) {
+  if (k <= 0) return 0;
+  return tree_up_launch<1, false>(x, 2 * k, out, nullptr, stream);
+}
+
+// G, two levels: x: (m, 24), level l; o1: (ceil(m / 2), 24), level l + 1;
+// o2: (ceil(m / 4), 24), level l + 2; odd levels padded with the identity;
+// by lanes where tree_lanes(m)
+extern "C" int quill_tree_up2(const void* x, long long m, void* o1, void* o2,
+                              void* stream) {
+  if (m <= 0) return 0;
+  return tree_lanes(m) ? tree_up_launch<2, true>(x, m, o1, o2, stream)
+                       : tree_up_launch<2, false>(x, m, o1, o2, stream);
+}
+
+// H, one level: in: (k, 24) prefixes; u: (2k, 24) the level below; out:
+// (2k, 24)
 extern "C" int quill_tree_down(const void* in, const void* u, long long k,
                                void* out, void* stream) {
   if (k <= 0) return 0;
-  tree_down_kernel<<<blocks(k), MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, (const uint32_t*)u, k, (uint32_t*)out);
-  return (int)cudaGetLastError();
+  return tree_down_launch<1, false>(in, nullptr, u, 2 * k, out, stream);
+}
+
+// H, two levels: p: (>= ceil(m / 4), 24) prefixes of level l + 2; u1:
+// (ceil(m / 2), 24) level l + 1; u0: (m, 24) level l; out: (m, 24) level
+// l's prefixes
+extern "C" int quill_tree_down2(const void* p, const void* u1, const void* u0,
+                                long long m, void* out, void* stream) {
+  if (m <= 0) return 0;
+  return tree_lanes(m)
+             ? tree_down_launch<2, true>(p, u1, u0, m, out, stream)
+             : tree_down_launch<2, false>(p, u1, u0, m, out, stream);
+}
+
+// the fused top, tree mode: x: (w, 24), 1 <= w <= TREE_TOP; out: (w, 24)
+// its prefixes
+extern "C" int quill_tree_top(const void* x, int w, void* out, void* stream) {
+  return tree_top_launch<true>(x, w, 1, out, stream);
+}
+
+// the fused top, reduce mode: x: (groups w, 24), w a power of two <=
+// TREE_TOP; out: (groups, 24), out[g] the pairwise sum of rows [g w, (g + 1)
+// w)
+extern "C" int quill_tree_reduce(const void* x, long long groups, int w,
+                                 void* out, void* stream) {
+  if (w & (w - 1)) return (int)cudaErrorInvalidValue;
+  return tree_top_launch<false>(x, w, groups, out, stream);
 }

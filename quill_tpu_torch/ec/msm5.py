@@ -5,7 +5,8 @@ Counterpart of `quill_tpu/ec/msm5.py` and of the parts of
 `quill_tpu/ec/msm3.py` it shares.  The TPU build laid the tree out as
 (S=256, 3L, M) tiles, fused its top levels and ran a Hillis-Steele ladder
 over the lanes, all to save TPU dispatches; here the tree is one flat
-sequence of `(n, 3, 8)` int32 Montgomery points, one launch per level.
+sequence of `(n, 3, 8)` int32 Montgomery points, two levels a launch
+through shared memory and its top in one block (`csrc/tree.cuh`).
 For B MSMs over one CRS chunk of n <= 2^16 points:
 
 1. digits: 20 unsigned 13-bit windows per scalar
@@ -21,16 +22,20 @@ For B MSMs over one CRS chunk of n <= 2^16 points:
    stable `torch.sort` orders the B * 20 * n keys, and the leaves are the
    shifted affine points in that order;
 4. prefix tree (`msm3.py:395 _tree(full=False)`, `msm5.py:288 _tree5`):
-   kernel F adds affine leaf pairs, kernel G adds each projective level up
-   (odd levels padded with the identity), kernel H expands each level down,
+   kernel F adds affine leaf pairs, kernel G adds the projective levels up
+   two a launch (odd levels padded with the identity) until one holds at
+   most TOP points, the fused top takes that level up to one point and
+   back down, and kernel H expands the levels below it two a launch,
    stopping at the pair level: I1[j] = P[2j + 1], P the inclusive prefix
-   sums of the leaves;
+   sums of the leaves.  Every triple is the one the chain of one-level
+   plain twins gives (`prefix_tree_chain`);
 5. collect (`msm3.py:490 _cgather_fn`, `msm5.py:308`): since G1 is a group
    the Pippenger sum telescopes, sum_d d B_d = 8191 P[e_8191] -
    sum_{c < 8191} P[e_c] with e_c the last sorted position whose key is
    at most b * 8192 + c (a digit-0 leaf, and every leaf of an earlier MSM,
    cancels).  Prefixes at even positions are I1 minus the next leaf; the
-   2 * 8191 terms of each MSM are summed pairwise by kernel G;
+   2 * 8191 terms of each MSM are summed pairwise by the fused top's
+   reduce mode;
 6. finalize on the host (`msm3.py:587 _finalize_host`): 8191 T_b - S_b.
 
 The JAX package builds the shifted basis of a tau-powers CRS with a
@@ -52,6 +57,9 @@ WBITS = 13
 NWIN = 20                  # ceil(254 / 13)
 NBUCK = 1 << WBITS
 CHUNK = 1 << 16            # CRS points per shifted-basis chunk
+# `csrc/tree.cuh: TREE_TOP`, the widest level the fused top takes; at
+# least 2, so that a two-level launch never goes past the single point
+TOP = 512
 
 _FN = {}
 
@@ -69,8 +77,16 @@ def _fns():
             [vp, vp, i64, i64, build.I32, build.I32, vp, vp, vp])
         _FN["up0"] = build.bind(lib, "quill_tree_up0", [vp, i64, vp, vp])
         _FN["up"] = build.bind(lib, "quill_tree_up", [vp, i64, vp, vp])
+        _FN["up2"] = build.bind(lib, "quill_tree_up2",
+                                [vp, i64, vp, vp, vp])
         _FN["down"] = build.bind(lib, "quill_tree_down",
                                  [vp, vp, i64, vp, vp])
+        _FN["down2"] = build.bind(lib, "quill_tree_down2",
+                                  [vp, vp, vp, i64, vp, vp])
+        _FN["top"] = build.bind(lib, "quill_tree_top",
+                                [vp, build.I32, vp, vp])
+        _FN["reduce"] = build.bind(lib, "quill_tree_reduce",
+                                   [vp, i64, build.I32, vp, vp])
     return _FN
 
 
@@ -83,6 +99,12 @@ def _check_points(t: torch.Tensor, coords: int, what: str) -> None:
     _require(t.is_cuda and t.dtype == torch.int32 and t.is_contiguous()
              and t.dim() == 3 and t.shape[1:] == (coords, fd.NLIMB),
              f"{what} must be contiguous (n, {coords}, 8) int32 on CUDA")
+
+
+def _check_tree(t: torch.Tensor, what: str) -> None:
+    """Kernels G and H copy 16-byte pieces."""
+    _check_points(t, 3, what)
+    _require(t.data_ptr() % 16 == 0, f"{what} must be 16-byte aligned")
 
 
 def _out(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -172,10 +194,11 @@ def tree_up0_plain(leaves):
 
 
 def tree_up(x):
-    """Kernel G: (2k, 3, 8) -> (k, 3, 8), o[j] = x[2j] + x[2j+1]."""
+    """Kernel G, one level: (2k, 3, 8) -> (k, 3, 8), o[j] = x[2j] +
+    x[2j+1]."""
     if not x.is_cuda:
         return tree_up_plain(x)
-    _check_points(x, 3, "x")
+    _check_tree(x, "x")
     _require(x.shape[0] % 2 == 0, "odd number of points")
     k = x.shape[0] // 2
     out = _out(k, x)
@@ -190,14 +213,47 @@ def tree_up_plain(x):
     return fd.from_w16(ed.padd_w(w[0::2], w[1::2]))
 
 
+def _pad(x):
+    """An odd level padded with the identity (0 : 1 : 0)."""
+    if x.shape[0] % 2 == 0:
+        return x
+    return torch.cat((x, ed.identity(1, x.device)), 0)
+
+
+def _half(m: int) -> int:
+    return (m + 1) // 2
+
+
+def tree_up2(x):
+    """Kernel G, two levels: level l (m, 3, 8) -> (level l + 1, level l +
+    2), (ceil(m / 2), 3, 8) and (ceil(m / 4), 3, 8), each odd level padded
+    with the identity before its pairs are added."""
+    if not x.is_cuda:
+        return tree_up2_plain(x)
+    _check_tree(x, "x")
+    m = x.shape[0]
+    _require(m >= 1, "an empty level")
+    o1, o2 = _out(_half(m), x), _out(_half(_half(m)), x)
+    rc = _fns()["up2"](x.data_ptr(), m, o1.data_ptr(), o2.data_ptr(),
+                       build.stream_ptr())
+    build.check(rc, "msm5_tree_up2")
+    build.count("msm5_tree_up")
+    return o1, o2
+
+
+def tree_up2_plain(x):
+    a = tree_up_plain(_pad(x))
+    return a, tree_up_plain(_pad(a))
+
+
 def tree_down(i, u):
-    """Kernel H: prefixes i (k, 3, 8) of a level and the level below it
-    u (2k, 3, 8) -> that level's prefixes (2k, 3, 8): o[2j+1] = i[j],
-    o[2j] = i[j] - u[2j+1]."""
+    """Kernel H, one level: prefixes i (k, 3, 8) of a level and the level
+    below it u (2k, 3, 8) -> that level's prefixes (2k, 3, 8): o[2j+1] =
+    i[j], o[2j] = i[j] - u[2j+1]."""
     if not i.is_cuda:
         return tree_down_plain(i, u)
-    _check_points(i, 3, "i")
-    _check_points(u, 3, "u")
+    _check_tree(i, "i")
+    _check_tree(u, "u")
     _require(u.shape[0] == 2 * i.shape[0], "u must be twice as long as i")
     k = i.shape[0]
     out = _out(2 * k, i)
@@ -215,6 +271,94 @@ def tree_down_plain(i, u):
     out[0::2] = fd.from_w16(even)
     out[1::2] = i
     return out
+
+
+def tree_down2(p, u1, u0):
+    """Kernel H, two levels: the prefixes p of level l + 2 (at least
+    ceil(m / 4) rows), level l + 1 u1 (ceil(m / 2), 3, 8) and level l u0
+    (m, 3, 8), unpadded -> level l's prefixes (m, 3, 8)."""
+    if not p.is_cuda:
+        return tree_down2_plain(p, u1, u0)
+    for t, what in ((p, "p"), (u1, "u1"), (u0, "u0")):
+        _check_tree(t, what)
+    m = u0.shape[0]
+    _require(m >= 1 and u1.shape[0] == _half(m)
+             and p.shape[0] >= _half(_half(m)),
+             "u1 must have ceil(m / 2) rows and p at least ceil(m / 4)")
+    out = _out(m, u0)
+    rc = _fns()["down2"](p.data_ptr(), u1.data_ptr(), u0.data_ptr(), m,
+                         out.data_ptr(), build.stream_ptr())
+    build.check(rc, "msm5_tree_down2")
+    build.count("msm5_tree_down")
+    return out
+
+
+def tree_down2_plain(p, u1, u0):
+    m1 = u1.shape[0]
+    p1 = tree_down_plain(p[:_half(m1)], _pad(u1))[:m1]
+    return tree_down_plain(p1, _pad(u0))[:u0.shape[0]]
+
+
+def tree_top(x):
+    """The fused top, tree mode: a level x (w, 3, 8), 1 <= w <= TOP -> its
+    prefixes (w, 3, 8), every level above it up and back down in one
+    launch."""
+    if not x.is_cuda:
+        return tree_top_plain(x)
+    _check_tree(x, "x")
+    w = x.shape[0]
+    _require(1 <= w <= TOP, f"the top takes 1 to {TOP} points")
+    out = _out(w, x)
+    rc = _fns()["top"](x.data_ptr(), w, out.data_ptr(), build.stream_ptr())
+    build.check(rc, "msm5_tree_top")
+    build.count("msm5_tree_top")
+    return out
+
+
+def tree_top_plain(x):
+    return _chain(x, tree_up_plain, tree_down_plain)
+
+
+def _chain(x, up, down):
+    """The prefixes of level x one level a call: the odd levels padded, up
+    to one point, then down."""
+    w = x.shape[0]
+    levels = []
+    while x.shape[0] > 1:
+        x = _pad(x)
+        levels.append(x)
+        x = up(x)
+    for lvl in reversed(levels):
+        x = down(x[:lvl.shape[0] // 2].contiguous(), lvl)
+    return x[:w]
+
+
+def tree_reduce(x, group: int):
+    """The fused top, reduce mode: (k group, 3, 8) points, group a power of
+    two -> (k, 3, 8), row g the pairwise sum of rows [g group, (g + 1)
+    group): the one-level halving's triples, in ceil(log2(group) / 9)
+    launches of spans of at most TOP points."""
+    _require(group >= 1 and group & (group - 1) == 0
+             and x.shape[0] % group == 0,
+             "group must be a power of two that divides the rows")
+    if not x.is_cuda:
+        return tree_reduce_plain(x, group)
+    _check_tree(x, "x")
+    while group > 1:
+        span = min(group, TOP)
+        out = _out(x.shape[0] // span, x)
+        rc = _fns()["reduce"](x.data_ptr(), out.shape[0], span,
+                              out.data_ptr(), build.stream_ptr())
+        build.check(rc, "msm5_tree_reduce")
+        build.count("msm5_tree_reduce")
+        x, group = out, group // span
+    return x
+
+
+def tree_reduce_plain(x, group: int):
+    while group > 1:
+        x, group = tree_up_plain(x), group // 2
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -356,18 +500,25 @@ def sort_leaves(scs, inf, sh):
 
 def prefix_tree(leaves):
     """(T, 2, 8) affine leaves, T even -> I1 (T/2, 3, 8), I1[j] the sum of
-    leaves 0 to 2j + 1."""
-    x = tree_up0(leaves)
-    n1 = x.shape[0]
-    levels = []
-    while x.shape[0] > 1:
-        if x.shape[0] % 2:
-            x = torch.cat((x, ed.identity(1, x.device)), 0)
-        levels.append(x)
-        x = tree_up(x)
-    for lvl in reversed(levels):
-        x = tree_down(x[:lvl.shape[0] // 2].contiguous(), lvl)
-    return x[:n1]
+    leaves 0 to 2j + 1: kernel F, kernel G two levels a launch down to a
+    level of at most TOP points, the fused top, kernel H two levels a
+    launch."""
+    levels = [tree_up0(leaves)]
+    while levels[-1].shape[0] > TOP:
+        levels += tree_up2(levels[-1])
+    p = tree_top(levels[-1])
+    for k in range(len(levels) - 3, -1, -2):
+        p = tree_down2(p, levels[k + 1], levels[k])
+    return p
+
+
+def prefix_tree_chain(leaves, up0=None, up=None, down=None):
+    """`prefix_tree` one level a launch, as the route ran before kernels G
+    and H took two levels a launch: up0, up and down default to the plain
+    twins of kernels F, G and H (the card's one-level launches where the
+    caller passes `tree_up0`, `tree_up`, `tree_down`)."""
+    return _chain((up0 or tree_up0_plain)(leaves), up or tree_up_plain,
+                  down or tree_down_plain)
 
 
 def collect(keys, perm, i1, sh, nb: int):
@@ -395,11 +546,9 @@ def collect(keys, perm, i1, sh, nb: int):
     terms = torch.cat((vals[:nb * m].view(shape), corr[:nb * m].view(shape),
                        ident.expand(nb, 2, 3, fd.NLIMB)), 1)
     terms = terms.reshape(-1, 3, fd.NLIMB).contiguous()
-    while terms.shape[0] > nb:
-        terms = tree_up(terms)
     totals = tree_up(torch.stack((vals[nb * m:], corr[nb * m:]), 1)
                      .reshape(-1, 3, fd.NLIMB).contiguous())
-    return terms, totals
+    return tree_reduce(terms, 2 * NBUCK), totals
 
 
 def finalize(s_pts: list, t_pts: list) -> list:

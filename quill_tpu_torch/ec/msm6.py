@@ -27,8 +27,8 @@ at most `msm_shift_max` points.  One MSM over n points:
    (`msm6.py:358-372`);
 4. tree: node s of level k is the sum of the sorted leaves
    [s 2^k, (s + 1) 2^k).  Kernel K builds level 1 from the shifted basis
-   through idx, kernel G each level above from adjacent pairs, up to a top
-   level of at most 1024 nodes (`_MIN_H`); every level is kept.  The JAX
+   through idx, kernel G the levels above from adjacent pairs, two a launch,
+   up to a top level of at most 1024 nodes (`_MIN_H`); every level is kept.  The JAX
    package lays the leaves out in bit-reversed order (`msm6.py:346-355`)
    only so that its Pallas blocks pair contiguous halves, and gathers them
    into a leaf array first (`_k_sort_gather`); kernel K gathers them itself;
@@ -40,7 +40,8 @@ at most `msm_shift_max` points.  One MSM over n points:
    (kernel E's flagged mode; gather indices clamped where the bit is not
    set, `msm6k.py:202`);
 6. reduce and finalize (`msm6k.py:255-279`, `msm6.py:396-420`): the
-   2^16 - 1 query results and one identity summed by halving (kernel G),
+   2^16 - 1 query results and one identity summed by halving (the fused
+   top's reduce mode, `msm5.tree_reduce`),
    and on the host (2^16 - 1) T - S with T the sum of all leaves: the sum
    over b of T - P[c_b] counts a leaf of digit d exactly d times.
 """
@@ -163,13 +164,15 @@ def sort_keys(canon, inf, width: int):
 
 
 def tree(sh, idx) -> list:
-    """Kernel K, then kernel G level by level -> [level 1, ..., top], the
-    top level at most MIN_TOP nodes wide."""
-    x = level0(sh, idx)
-    levels = [x]
-    while x.shape[0] > MIN_TOP:
-        x = msm5.tree_up(x)
-        levels.append(x)
+    """Kernel K, then kernel G two levels a launch (one where a single level
+    reaches the top) -> [level 1, ..., top], the top level at most MIN_TOP
+    nodes wide."""
+    levels = [level0(sh, idx)]
+    while levels[-1].shape[0] > MIN_TOP:
+        if levels[-1].shape[0] > 2 * MIN_TOP:
+            levels += msm5.tree_up2(levels[-1])
+        else:
+            levels.append(msm5.tree_up(levels[-1]))
     return levels
 
 
@@ -219,10 +222,9 @@ def queries(cnt, sh, idx, levels, top):
 
 
 def reduce_sum(x):
-    """(2^j, 3, 8) points -> (1, 3, 8) their sum, halving by kernel G."""
-    while x.shape[0] > 1:
-        x = msm5.tree_up(x)
-    return x
+    """(2^j, 3, 8) points -> (1, 3, 8) their sum by halving: the fused top's
+    reduce mode (`msm5.tree_reduce`)."""
+    return msm5.tree_reduce(x, x.shape[0])
 
 
 def msm(basis: TorchBasis, scalars: torch.Tensor) -> curve.Jacobian:

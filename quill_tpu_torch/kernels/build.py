@@ -42,7 +42,7 @@ LIBS = {
     "quotient": "quotient.cu",
 }
 HEADERS = ["bn254.cuh", "seg_scan.cuh", "quotient.cuh", "bucket.cuh",
-           "ntt.cuh", "sumcheck.cuh", "ladder.cuh"]
+           "ntt.cuh", "sumcheck.cuh", "ladder.cuh", "tree.cuh"]
 HOST_SOURCE = "bn254_host.cpp"
 # host library -> C source under native/
 NATIVE_LIBS = {
@@ -69,8 +69,10 @@ LAUNCHES = {
     "msm5_shifted_basis": 0,  # kernel E: the shifted basis, one launch
     "msm5_pt_dbl": 0,        # kernel E: k doublings (v8's triangle)
     "msm5_tree_up0": 0,      # kernel F
-    "msm5_tree_up": 0,       # kernel G
-    "msm5_tree_down": 0,     # kernel H
+    "msm5_tree_up": 0,       # kernel G: one or two levels
+    "msm5_tree_down": 0,     # kernel H: one or two levels
+    "msm5_tree_top": 0,      # kernel G's fused top, tree mode
+    "msm5_tree_reduce": 0,   # kernel G's fused top, reduce mode
     "msm8_seg_scan": 0,      # kernel I
     "fixed_base": 0,         # kernel J
     "msm6_level0": 0,        # kernel K

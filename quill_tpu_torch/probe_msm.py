@@ -53,7 +53,13 @@ def ptxas(lib: str = "msm") -> dict:
         capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{res.stderr}")
-    lines = (res.stdout + res.stderr).splitlines()
+    return ptxas_usage(res.stdout + res.stderr)
+
+
+def ptxas_usage(log: str) -> dict:
+    """nvcc -Xptxas -v output -> {kernel: {registers, stack frame and spill
+    bytes}}, a template kernel named with its argument (int or bool)."""
+    lines = log.splitlines()
     usage = {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -67,9 +73,11 @@ def ptxas(lib: str = "msm") -> dict:
         mangled = re.match(r"_Z(\d+)", name)
         if mangled:
             end = mangled.end() + int(mangled.group(1))
-            arg = re.match(r"ILi(\d+)E", name[end:])   # template <int N>
-            name = name[mangled.end():end] + (f"<{arg.group(1)}>" if arg
-                                              else "")
+            # template arguments, each an int or a bool
+            args = re.match(r"I((?:L[ib]\d+E)+)E", name[end:])
+            name = name[mangled.end():end] + (
+                "<" + ", ".join(re.findall(r"L[ib](\d+)E", args.group(1)))
+                + ">" if args else "")
         usage[name] = dict(registers=int(regs.group(1)),
                            stack_frame_bytes=int(frame.group(1)),
                            spill_store_bytes=int(frame.group(2)),

@@ -292,6 +292,89 @@ def test_kernels_e_to_h_match_plain(dev):
         assert out == M.msm(basis, s)
 
 
+def _proj_points(n, dev, seed):
+    """(n, 3, 8) projective points on the card from 64 multiples of G and
+    the identity, about one in ten the identity."""
+    g = curve.g1_generator()
+    pool = ed.jacobians_to_proj(
+        [g.scalar_mul(k + 3) for k in range(64)]
+        + [curve.Jacobian.identity(curve.Fq(1))], dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    idx = torch.randint(0, 64, (n,), device=dev, generator=gen)
+    idx[torch.rand(n, device=dev, generator=gen) < 0.1] = 64
+    return pool[idx].contiguous()
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 513, 2049, 15361])
+def test_kernels_g_h_two_levels_match_plain(dev, m):
+    """Kernels G and H two levels a launch, at 1- and 2-point levels, odd
+    widths and several blocks, against the chains of plain one-level twins
+    (`torch.equal`); one launch each."""
+    from quill_tpu_torch.ec import msm5
+
+    x = _proj_points(m, dev, m)
+    before = dict(build.LAUNCHES)
+    o1, o2 = msm5.tree_up2(x)
+    a, b = msm5.tree_up2_plain(x)
+    assert torch.equal(o1, a) and torch.equal(o2, b)
+    p = _proj_points(o2.shape[0], dev, m + 1)
+    got = msm5.tree_down2(p, o1, x)
+    assert torch.equal(got, msm5.tree_down2_plain(p, o1, x))
+    assert build.LAUNCHES["msm5_tree_up"] == before["msm5_tree_up"] + 1
+    assert build.LAUNCHES["msm5_tree_down"] == before["msm5_tree_down"] + 1
+    if m % 2 == 0:
+        assert torch.equal(msm5.tree_up(x), msm5.tree_up_plain(x))
+        half = x[:m // 2].contiguous()
+        assert torch.equal(msm5.tree_down(half, x),
+                           msm5.tree_down_plain(half, x))
+
+
+def test_fused_top_matches_plain(dev):
+    """The fused top in tree mode at 1 to 512 points and in reduce mode at
+    the collect's and v6's group sizes, against their plain twins; the
+    collect's reduction in two launches."""
+    from quill_tpu_torch.ec import msm5
+
+    for w in (1, 2, 3, 160, 511, msm5.TOP):
+        x = _proj_points(w, dev, 2 * w)
+        assert torch.equal(msm5.tree_top(x), msm5.tree_top_plain(x))
+    for rows, group in ((6, 1), (8, 2), (3 * 512, 512), (4 << 14, 1 << 14),
+                        (1 << 16, 1 << 16)):
+        x = _proj_points(rows, dev, rows + group)
+        before = build.LAUNCHES["msm5_tree_reduce"]
+        got = msm5.tree_reduce(x, group)
+        assert torch.equal(got, msm5.tree_reduce_plain(x, group))
+        assert build.LAUNCHES["msm5_tree_reduce"] - before <= 2
+
+
+def test_prefix_tree_matches_one_level_chain(dev):
+    """The whole prefix tree (two-level launches, the top) gives the same
+    triples as the chain of one-level launches, and one small-route call
+    launches G, H, the top and its reduce mode as the design says."""
+    from quill_tpu_torch.ec import msm5
+
+    pts = [curve.g1_generator().scalar_mul(k + 2).to_affine()
+           for k in range(512)]
+    basis = M.load_basis(pts, dev)
+    ints = [[RNG.randrange(R) for _ in range(512)] for _ in range(4)]
+    scalars = [fd.from_ints(v, fd.FR, dev) for v in ints]
+    scs = torch.stack([fd.from_mont(s, fd.FR) for s in scalars])
+    sh = msm5.shifted(basis, 0)
+    _, _, leaves = msm5.sort_leaves(scs, basis.inf, sh)
+    got = msm5.prefix_tree(leaves)
+    assert torch.equal(got, msm5.prefix_tree_chain(
+        leaves, msm5.tree_up0, msm5.tree_up, msm5.tree_down))
+    before = dict(build.LAUNCHES)
+    out = msm5.msm_batch(basis, scalars)
+    n = {k: v - before[k] for k, v in build.LAUNCHES.items()}
+    # 20,480 pairs -> 5,120 -> 1,280 -> 320: 3 two-level launches each way
+    assert (n["msm5_tree_up"], n["msm5_tree_down"]) == (3 + 1, 3)
+    assert (n["msm5_tree_top"], n["msm5_tree_reduce"]) == (1, 2)
+    for s, o in zip(scalars, out):
+        assert o == M.msm(basis, s)
+
+
 def _pool_points(n, dev, seed):
     """n affine points drawn from 256 multiples of G on the card, one in
     1000 at infinity ((0, 0) with its mask set)."""

@@ -192,10 +192,10 @@ def test_shifted_basis_entries(points):
             assert (vals[2 * row], vals[2 * row + 1]) == want, (w, i)
 
 
-@pytest.mark.parametrize("t", [2, 6, 10, 20, 640, 1000])
-def test_prefix_tree_wiring(t, monkeypatch):
-    """Integers in coordinate 0 of limb 0, addition for the point add: the
-    tree must give the running sums at the odd positions."""
+def _wiring(t, monkeypatch):
+    """Integers in coordinate 0 of limb 0, addition for the point add (the
+    one-level twins that every CPU path of the tree reaches): the tree must
+    give the running sums at the odd positions."""
 
     def val(x):
         return x[:, 0, 0]
@@ -221,14 +221,27 @@ def test_prefix_tree_wiring(t, monkeypatch):
         return pack(out)
 
     monkeypatch.setattr(msm5, "tree_up0", up0)
-    monkeypatch.setattr(msm5, "tree_up", up)
-    monkeypatch.setattr(msm5, "tree_down", down)
+    monkeypatch.setattr(msm5, "tree_up_plain", up)
+    monkeypatch.setattr(msm5, "tree_down_plain", down)
     rng = np.random.default_rng(t)
     v = torch.from_numpy(rng.integers(-1000, 1000, size=t).astype(np.int32))
     leaves = torch.zeros((t, 2, fd.NLIMB), dtype=torch.int32)
     leaves[:, 0, 0] = v
     got = val(msm5.prefix_tree(leaves))
     assert torch.equal(got, torch.cumsum(v, 0)[1::2].to(torch.int32))
+
+
+@pytest.mark.parametrize("t", [2, 6, 10, 20, 640, 1000])
+def test_prefix_tree_wiring(t, monkeypatch):
+    _wiring(t, monkeypatch)
+
+
+@pytest.mark.parametrize("t", [2, 6, 10, 20, 640, 1000])
+def test_prefix_tree_wiring_two_levels(t, monkeypatch):
+    """The same with the fused top at 3 points: the wide levels' two-level
+    launches carry most of the tree."""
+    monkeypatch.setattr(msm5, "TOP", 3)
+    _wiring(t, monkeypatch)
 
 
 def test_single_and_batched_msm(basis, points):

@@ -133,7 +133,9 @@ def int_world(monkeypatch):
         return _pack(v[0::2] + v[1::2])
 
     monkeypatch.setattr(msm6, "level0", level0)
-    monkeypatch.setattr(msm5, "tree_up",
+    # the one-level twin that kernel G's one- and two-level wrappers and
+    # the fused top's reduce mode reach on the CPU
+    monkeypatch.setattr(msm5, "tree_up_plain",
                         lambda x: _pack(_val(x)[0::2] + _val(x)[1::2]))
     monkeypatch.setattr(msm5, "pt_add",
                         lambda a, b, flags=None: _pack(_val(a) + _val(b)))
