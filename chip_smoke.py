@@ -502,8 +502,10 @@ def tree_kernels(leaves, x1, card):
     """Kernels G and H and the fused top against their plain twins with
     `torch.equal`, at the small route's shapes: one- and two-level G on the
     leaf pairs x1 (one batch of 4 x 20 x 2^16 leaves), one- and two-level H
-    back to them, the top (tree mode) at the path's top level, its reduce
-    mode on the collect's 4 runs of 2^14 terms and on v6's 2^16 query sums;
+    back to them, both two-level launches by lanes at the path's widest
+    level of at most `msm5.LANE_LEVEL` points, the top (tree mode) at the
+    path's top level, its reduce mode on the collect's 4 runs of 2^14 terms
+    and on v6's 2^16 query sums;
     then the whole `prefix_tree` against the chain of one-level launches
     (`msm5.prefix_tree_chain`), both timed, and the collect's reduction
     against its one-level halving.  -> (records of G, H, the top and the
@@ -536,6 +538,19 @@ def tree_kernels(leaves, x1, card):
     k1 = x1.shape[0]
     x2, x3 = msm5.tree_up2(x1)
     held("two-level G", (x2, x3), msm5.tree_up2_plain(x1))
+    # the widest level of the path whose two-level launches go by lanes
+    y1 = x3
+    while y1.shape[0] > msm5.LANE_LEVEL:
+        y1 = msm5.tree_up2(y1)[1]
+    y2, y3 = msm5.tree_up2(y1)
+    held("two-level G by lanes", (y2, y3), msm5.tree_up2_plain(y1))
+    held("two-level H by lanes", msm5.tree_down2(y3, y2, y1),
+         msm5.tree_down2_plain(y3, y2, y1))
+    m1, m2, m3 = y1.shape[0], y2.shape[0], y3.shape[0]
+    lanes_g = cuda_ms(lambda: msm5.tree_up2(y1))
+    lanes_h = cuda_ms(lambda: msm5.tree_down2(y3, y2, y1))
+    log(f"kernels G and H by lanes, two levels over {m1} points: "
+        f"{lanes_g:.3f} ms and {lanes_h:.3f} ms")
     held("one-level G", msm5.tree_up(x1), msm5.tree_up_plain(x1))
     k2, k3 = x2.shape[0], x3.shape[0]
     one_g = cuda_ms(lambda: msm5.tree_up(x1))
@@ -545,7 +560,11 @@ def tree_kernels(leaves, x1, card):
         f"-> {k3} points, {k2 + k3} adds",
         lambda: msm5.tree_up2(x1), lambda: msm5.tree_up2_plain(x1),
         one_level_shape=f"{k2} adds", one_level_ms=one_g,
-        one_level_bound_ms=bound(card, 12 * k2, 3 * k2 * PT)["bound_ms"])
+        one_level_bound_ms=bound(card, 12 * k2, 3 * k2 * PT)["bound_ms"],
+        lanes_shape=f"two levels by lanes: {m1} -> {m2} -> {m3} points, "
+        f"{m2 + m3} adds", lanes_ms=lanes_g,
+        lanes_bound_ms=bound(card, 12 * (m2 + m3),
+                             (m1 + m2 + m3) * PT)["bound_ms"])
     held("two-level H", msm5.tree_down2(x3, x2, x1),
          msm5.tree_down2_plain(x3, x2, x1))
     held("one-level H", msm5.tree_down(x2, x1), msm5.tree_down_plain(x2, x1))
@@ -558,8 +577,12 @@ def tree_kernels(leaves, x1, card):
         lambda: msm5.tree_down2_plain(x3, x2, x1),
         one_level_shape=f"finest level, {k2} adds, {k1} outputs",
         one_level_ms=one_h,
-        one_level_bound_ms=bound(card, 12 * k2, 4 * k2 * PT)["bound_ms"])
-    del x2, x3
+        one_level_bound_ms=bound(card, 12 * k2, 4 * k2 * PT)["bound_ms"],
+        lanes_shape=f"two levels by lanes: {m3} -> {m2} -> {m1} prefixes, "
+        f"{m1 - m3} adds", lanes_ms=lanes_h,
+        lanes_bound_ms=bound(card, 12 * (m1 - m3), (
+            m3 + m2 // 2 + m1 // 2 + m1) * PT)["bound_ms"])
+    del x2, x3, y1, y2, y3
     levels = [x1]
     while levels[-1].shape[0] > msm5.TOP:
         levels += msm5.tree_up2(levels[-1])

@@ -535,6 +535,12 @@ void q_tree_down_blocked(int L, int lanes, const uint32_t* p,
 // 1 where a two-level launch over m points goes by lanes
 int q_tree_lanes(long m) { return tree_lanes(m); }
 
+// tree.cuh's TREE_NT, TREE_TOP and TREE_LANE_LEVEL, which the Python side
+// keeps as copies
+int q_tree_nt() { return TREE_NT; }
+int q_tree_top_width() { return TREE_TOP; }
+long q_tree_lane_level() { return TREE_LANE_LEVEL; }
+
 // The fused top (tree_top_kernel) emulated: `blocks` blocks of w rows, each
 // level's items in order, by g1_add where the kernel gives an add a thread
 // and by g1_add_split (the six lanes' steps) where it gives one a group.

@@ -78,7 +78,7 @@ tree_up0_kernel(const uint32_t* __restrict__ leaves, long long k,
 
 // G's and H's blocks of TREE_NT threads (csrc/tree.cuh): the minimum of
 // resident blocks an SM that ptxas is held to (registers), by measurement
-// (quill_tpu_torch/probe_tree.py --sweep, on an H100): 256 threads and 2
+// (builds with other values timed on an H100; PERF.md): 256 threads and 2
 // blocks give the two-level launches by threads 128 registers, no stack
 // frame and no spills, 16 warps an SM (their 100 KB of shared memory a
 // block allow 2 as well); 128 threads and 4 blocks were 10-15% slower, 1
@@ -86,9 +86,7 @@ tree_up0_kernel(const uint32_t* __restrict__ leaves, long long k,
 // blocks of 128.  One level: 126.  The fused top (256 threads, one block
 // an SM): 134 registers in tree mode, 128 and an 8-byte stack frame in
 // reduce mode.
-#ifndef TREE_MINB
 #define TREE_MINB 2
-#endif
 
 // Items [0, n) of a phase, one a group of six lanes (g1_add_lanes), in
 // rounds of `groups` groups (five a warp; lanes 30 and 31 and the groups
@@ -339,17 +337,11 @@ extern "C" int quill_tree_up0(const void* leaves, long long k, void* out,
   return (int)cudaGetLastError();
 }
 
-// Once per kernel: dynamic shared memory above the default 48 KB, and the
-// largest shared-memory carveout, so that registers, not the L1 split, set
-// the blocks an SM holds.
+// Once per kernel: dynamic shared memory above the default 48 KB
 template <class K>
 static int tree_launch_smem(K kernel, int bytes) {
-  const cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (rc != cudaSuccess) return (int)rc;
   return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int L, bool LANES>

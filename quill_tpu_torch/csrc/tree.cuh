@@ -46,14 +46,10 @@
 
 #include "bn254.cuh"
 
-#ifndef TREE_NT
 #define TREE_NT 256      // threads of a wide block, adds by threads
-#endif
 #define TREE_LANE_NT 128  // threads of a wide block, adds by lanes
 #define TREE_TOP 512     // widest level of the fused top, and its span
-#ifndef TREE_TOP_NT
 #define TREE_TOP_NT 256  // threads of the fused top
-#endif
 
 namespace bn254 {
 
@@ -194,9 +190,7 @@ __device__ __forceinline__ G1P g1_add_lanes(const G1P& p, const G1P& q,
 // levels' adds go one a group of six lanes), slot r at 24 r + 4 floor(r / 4)
 // words (4 words of padding after every 4 points).
 #define TREE_LANE_SPAN 32       // 16 and 8 adds: one round of the groups
-#ifndef TREE_LANE_LEVEL
 #define TREE_LANE_LEVEL 65536   // two-level launches by lanes up to this m
-#endif
 #define TREE_LANE_GROUPS (TREE_LANE_NT / 32 * 5)
 
 constexpr QHD int tree_span(int L, bool lanes) {

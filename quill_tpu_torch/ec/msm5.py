@@ -57,9 +57,13 @@ WBITS = 13
 NWIN = 20                  # ceil(254 / 13)
 NBUCK = 1 << WBITS
 CHUNK = 1 << 16            # CRS points per shifted-basis chunk
-# `csrc/tree.cuh: TREE_TOP`, the widest level the fused top takes; at
-# least 2, so that a two-level launch never goes past the single point
+# `csrc/tree.cuh: TREE_TOP` (tests/test_torch_tree_blocked.py holds this
+# copy to it), the widest level the fused top takes; at least 2, so that a
+# two-level launch never goes past the single point
 TOP = 512
+# `csrc/tree.cuh: TREE_LANE_LEVEL` (held to it by the same test): two-level
+# launches over at most this many points give an add to six lanes
+LANE_LEVEL = 1 << 16
 
 _FN = {}
 

@@ -2,12 +2,11 @@
 `csrc/tree.cuh`) split into its launches on the card.
 
     python quill_tpu_torch/probe_tree.py [--root CHECKOUT] [--ptxas]
-        [--sweep] [--reps N]
+        [--reps N]
 
-`--root` imports `quill_tpu_torch` from another checkout (default: this
-one), so that one command can measure two trees in turn; a checkout from
-before the two-level launches (no `msm5.tree_up2`) is timed one level a
-launch, as its `prefix_tree` runs.
+`--root` imports `quill_tpu_torch` from another checkout with the same
+tree API (default: this one), so that one command can measure two trees
+in turn.
 
 1. with `--ptxas`, builds `csrc/msm5.cu` with `nvcc -Xptxas -v` and prints
    ptxas's registers, stack frame and spills for its kernels;
@@ -21,12 +20,7 @@ launch, as its `prefix_tree` runs.
    and each two-level launch alone;
    `collect` whole and its pairwise reduction alone (4 runs of 2^14
    points); v6's `reduce_sum` on 2^16 points; one `msm_batch` call and its
-   launches by kernel;
-4. with `--sweep` (same tree only), builds `csrc/msm5.cu` once for each
-   (TREE_NT, TREE_MINB, TREE_TOP_NT, TREE_LANE_LEVEL) of SWEEP, all nvcc
-   processes at once, prints each build's ptxas lines for G, H and the
-   top, and times two-level G and H and the whole tree by parts with each
-   build, held to the default build's output.
+   launches by kernel.
 
 The last line is one JSON object with the card's name and power limit.
 """
@@ -34,7 +28,6 @@ The last line is one JSON object with the card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -44,9 +37,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NB = 4                     # MSMs in the batch, as a 2^16-row prove's
 TERMS = 1 << 14            # collect's terms a MSM: 8191 + 8191 + 2
 V6_REDUCE = 1 << 16        # v6's reduce_sum: 2^16 - 1 queries + 1
-# the sweep's builds: (TREE_NT, TREE_MINB, TREE_TOP_NT, TREE_LANE_LEVEL)
-SWEEP = ((256, 2, 256, 65536), (128, 4, 256, 65536), (192, 2, 256, 65536),
-         (256, 2, 128, 65536))
 
 
 def _events(fn, reps: int) -> float:
@@ -63,11 +53,6 @@ def _events(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def _require(ok: bool, what: str) -> None:
-    if not ok:
-        raise SystemExit(f"probe_tree: FAILED: {what}")
 
 
 def batch(dev):
@@ -90,66 +75,40 @@ def batch(dev):
 
 def tree_parts(leaves, reps: int) -> dict:
     """`prefix_tree` whole and launch group by launch group."""
-    import torch
-
-    from quill_tpu_torch.ec import device as ed
     from quill_tpu_torch.ec import msm5
 
     x1 = msm5.tree_up0(leaves)
-    out = dict(whole_ms=_events(lambda: msm5.prefix_tree(leaves), reps),
-               f_ms=_events(lambda: msm5.tree_up0(leaves), reps))
-    if hasattr(msm5, "tree_up2"):
-        def up():
-            levels = [x1]
-            while levels[-1].shape[0] > msm5.TOP:
-                levels += msm5.tree_up2(levels[-1])
-            return levels
+    levels = [x1]
+    while levels[-1].shape[0] > msm5.TOP:
+        levels += msm5.tree_up2(levels[-1])
+    p = msm5.tree_top(levels[-1])
+    downs = range(len(levels) - 3, -1, -2)
+    ps = [p]
+    for k in downs:
+        ps.append(msm5.tree_down2(ps[-1], levels[k + 1], levels[k]))
 
-        levels = up()
-        p = msm5.tree_top(levels[-1])
+    def up():
+        ls = [x1]
+        while ls[-1].shape[0] > msm5.TOP:
+            ls += msm5.tree_up2(ls[-1])
 
-        def down():
-            q = p
-            for k in range(len(levels) - 3, -1, -2):
-                q = msm5.tree_down2(q, levels[k + 1], levels[k])
-            return q
+    def down():
+        q = p
+        for k in downs:
+            q = msm5.tree_down2(q, levels[k + 1], levels[k])
 
-        ups = [_events(lambda k=k: msm5.tree_up2(levels[k]), reps)
-               for k in range(0, len(levels) - 1, 2)]
-        ps = [p]
-        for k in range(len(levels) - 3, -1, -2):
-            ps.append(msm5.tree_down2(ps[-1], levels[k + 1], levels[k]))
-        downs = [_events(lambda k=k, q=q: msm5.tree_down2(
+    return dict(
+        whole_ms=_events(lambda: msm5.prefix_tree(leaves), reps),
+        f_ms=_events(lambda: msm5.tree_up0(leaves), reps),
+        up_ms=_events(up, reps),
+        top_ms=_events(lambda: msm5.tree_top(levels[-1]), reps),
+        top_width=levels[-1].shape[0], down_ms=_events(down, reps),
+        widths=[lv.shape[0] for lv in levels],
+        up_launch_ms=[_events(lambda k=k: msm5.tree_up2(levels[k]), reps)
+                      for k in range(0, len(levels) - 1, 2)],
+        down_launch_ms=[_events(lambda k=k, q=q: msm5.tree_down2(
             q, levels[k + 1], levels[k]), reps)
-            for k, q in zip(range(len(levels) - 3, -1, -2), ps)]
-        out.update(up_ms=_events(up, reps),
-                   top_ms=_events(lambda: msm5.tree_top(levels[-1]), reps),
-                   top_width=levels[-1].shape[0], down_ms=_events(down, reps),
-                   widths=[lv.shape[0] for lv in levels],
-                   up_launch_ms=ups, down_launch_ms=downs)
-        return out
-
-    def up_chain():
-        x, levels = x1, []
-        while x.shape[0] > 1:
-            if x.shape[0] % 2:
-                x = torch.cat((x, ed.identity(1, x.device)), 0)
-            levels.append(x)
-            x = msm5.tree_up(x)
-        return levels, x
-
-    levels, top = up_chain()
-
-    def down_chain():
-        x = top
-        for lvl in reversed(levels):
-            x = msm5.tree_down(x[:lvl.shape[0] // 2].contiguous(), lvl)
-        return x
-
-    out.update(up_ms=_events(up_chain, reps), down_ms=_events(down_chain,
-                                                               reps),
-               widths=[lv.shape[0] for lv in levels])
-    return out
+            for k, q in zip(downs, ps)])
 
 
 def reductions(x1, reps: int) -> dict:
@@ -158,17 +117,9 @@ def reductions(x1, reps: int) -> dict:
     from quill_tpu_torch.ec import msm5, msm6
 
     terms = x1[:NB * TERMS].contiguous()
-    if hasattr(msm5, "tree_reduce"):
-        def red():
-            return msm5.tree_reduce(terms, TERMS)
-    else:
-        def red():
-            t = terms
-            while t.shape[0] > NB:
-                t = msm5.tree_up(t)
-            return t
     v6 = x1[:V6_REDUCE].contiguous()
-    return dict(collect_reduce_ms=_events(red, reps),
+    return dict(collect_reduce_ms=_events(
+                    lambda: msm5.tree_reduce(terms, TERMS), reps),
                 v6_reduce_sum_ms=_events(lambda: msm6.reduce_sum(v6), reps))
 
 
@@ -183,66 +134,10 @@ def launches_per_call(basis, s_list) -> dict:
             if v != before[k]}
 
 
-def sweep(leaves, reps: int) -> dict:
-    """Each SWEEP build of csrc/msm5.cu: its ptxas lines for G, H and the
-    top, two-level G and H on the leaf pairs, and the whole tree by parts,
-    every output held to the default build's."""
-    import torch
-
-    from quill_tpu_torch.ec import msm5
-    from quill_tpu_torch.kernels import build
-    from quill_tpu_torch.probe_msm import ptxas_usage
-
-    out_dir = build.build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for nt, minb, top_nt, lanes in SWEEP:
-        tag = f"nt{nt}_minb{minb}_top{top_nt}_lanes{lanes}"
-        so = out_dir / f"libsweep_{tag}.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
-               f"-DTREE_NT={nt}", f"-DTREE_MINB={minb}",
-               f"-DTREE_TOP_NT={top_nt}",
-               f"-DTREE_LANE_LEVEL={lanes}", "-I", str(build.CSRC), "-o",
-               str(so), str(build.CSRC / build.LIBS["msm5"])]
-        procs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      so)
-    x1 = msm5.tree_up0(leaves)
-    want2, want3 = msm5.tree_up2(x1)
-    want_p = msm5.tree_down2(want3, want2, x1)
-    want_tree = msm5.prefix_tree(leaves)
-    default = build.lib("msm5")
-    res = {}
-    for tag, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        _require(proc.returncode == 0, f"nvcc failed for {tag}:\n{log}")
-        usage = {k: v for k, v in ptxas_usage(log).items()
-                 if k.startswith("tree_")}
-        build._LOADED["msm5"] = ctypes.CDLL(str(so))
-        msm5._FN.clear()
-        x2, x3 = msm5.tree_up2(x1)
-        p = msm5.tree_down2(want3, want2, x1)
-        _require(torch.equal(x2, want2) and torch.equal(x3, want3)
-                 and torch.equal(p, want_p)
-                 and torch.equal(msm5.prefix_tree(leaves), want_tree),
-                 f"build {tag} differs")
-        res[tag] = dict(ptxas=usage,
-                        up2_ms=_events(lambda: msm5.tree_up2(x1), reps),
-                        down2_ms=_events(lambda: msm5.tree_down2(
-                            want3, want2, x1), reps),
-                        up1_ms=_events(lambda: msm5.tree_up(x1), reps),
-                        tree=tree_parts(leaves, reps))
-        print(f"sweep {tag}: {json.dumps(res[tag])}", flush=True)
-    build._LOADED["msm5"] = default
-    msm5._FN.clear()
-    return res
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     sys.path[0] = os.path.abspath(args.root)
@@ -256,8 +151,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
-    res = dict(card=card, root=os.path.abspath(args.root),
-               two_level=hasattr(msm5, "tree_up2"))
+    res = dict(card=card, root=os.path.abspath(args.root))
     if args.ptxas:
         from quill_tpu_torch.probe_msm import ptxas
 
@@ -284,8 +178,6 @@ def main():
              "msm_batch_ms", "launches_per_call")
     print(f"collect: {json.dumps({k: res[k] for k in keys_})}", flush=True)
     del x2, i1
-    if res["two_level"] and args.sweep:
-        res["sweep"] = sweep(leaves, reps)
     print(json.dumps(res))
 
 

@@ -57,7 +57,19 @@ def lib():
     lib.q_tree_lanes.restype = INT
     lib.q_tree_top.argtypes = [VP, INT, LONG, INT, VP]
     lib.q_tree_top.restype = INT
+    lib.q_tree_nt.restype = INT
+    lib.q_tree_top_width.restype = INT
+    lib.q_tree_lane_level.restype = LONG
     return lib
+
+
+def test_constants_match_tree_cuh(lib):
+    """NT here and `msm5.TOP` and `msm5.LANE_LEVEL` are tree.cuh's."""
+    assert lib.q_tree_nt() == NT
+    assert lib.q_tree_top_width() == msm5.TOP
+    assert lib.q_tree_lane_level() == msm5.LANE_LEVEL
+    assert lib.q_tree_lanes(msm5.LANE_LEVEL)
+    assert not lib.q_tree_lanes(msm5.LANE_LEVEL + 1)
 
 
 @functools.lru_cache(maxsize=None)
