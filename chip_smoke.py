@@ -19,9 +19,10 @@ Phases, any failure exits non-zero:
    per source, all at once) and the host C libraries of native/ (G1
    arithmetic, BLAKE3) with gcc;
 3. CRS: the host CRS of 2^18 + 1 points (native host EC, the reference),
-   then the device CRS of 2^22 + 1 points (`setup`: kernel J and one
-   batch inversion); its first 2^18 + 1 points must equal the host CRS and
-   a random sample of later ones the native scalar products tau^i G;
+   then the device CRS of 2^22 + 1 points (`setup`: kernel J's table and
+   the CRS, affine, in two launches); its first 2^18 + 1 points must equal
+   the host CRS and a random sample of later ones the native scalar
+   products tau^i G; the tau powers and the table are timed apart;
 4. kernels: each kernel against its plain twin on the card, exactly, at
    the shapes the proves give it, with the times of the kernel wrappers
    and of the plain twins and the least time the card could take for the
@@ -32,12 +33,17 @@ Phases, any failure exits non-zero:
    of ~2^22 and 8 of ~2^18 coefficients; kernel E's shifted basis of one
    2^16-point chunk at 20 windows of 13 bits and at 16 of 16, of two
    chunks in one launch at (20, 13) and of 2^18 points at (16, 16), and
-   its doubling at v8's triangle; kernels G and H one and two levels a
+   its doubling at v8's triangle; kernel E's add by threads at 2^16 and
+   by lanes at v8's triangle's 20 points; kernels G and H one and two levels a
    launch on one small-route batch's 2,621,440 leaf pairs, the fused top at
    the batch's top level and its reduce mode on the collect's and v6's
    reductions, each with `torch.equal`, and the whole prefix tree against
    the chain of one-level launches, both timed; kernel E's v8 collect mode
-   on one v8 chunk); the 2^18-point MSMs also against the native host MSM;
+   on one v8 chunk; kernel E's walk mode, v6's bucket queries, by threads
+   and by lanes against the chain of flagged launches, and the fused top as
+   v6's prefix, at a 2^18-point v6 MSM's shapes; kernel J's table, one
+   2^16-point chunk and the 2^18 + 1-point CRS against its twin); the
+   2^18-point MSMs also against the native host MSM;
    the small-route MSM of 4 x 2^16 points (its launches logged), v6 MSMs
    of 2^18 and 2^20 points and a v8 MSM of 2^22 points against kernels C
    and D on the same scalars;
@@ -58,8 +64,9 @@ its host spans (`kzg/quotient` and `kzg/open_msm` on a line of their own);
 every kernel must have launched in the CRS build, the field bench or one
 of the paths, kernel M on the 2^16- and the 2^20-row paths, and the v8
 collect on the 2^20-row path.  The 2^16-row path's shifted basis is
-kernel E's one launch a call (no E add on that path), and v8's triangle
-one doubling launch and 3 adds a MSM.  The line before the last is the
+kernel E's one launch a call (no E add on that path), the v6 path one
+query walk a v6 MSM and no E add, and v8's triangle one doubling launch
+and 3 adds a MSM.  The line before the last is the
 per-kernel JSON record, the last line the device record.
 """
 
@@ -87,6 +94,7 @@ CRS_SAMPLES = 64           # later CRS points checked by native EC
 # route's largest (a flat space of 2^24 leaves)
 V6_POINTS = (1 << 18, 1 << 20)
 FIELD_N = 1 << 18          # kernel L's products in the kernel phase
+TRIANGLE_POINTS = 20       # v8's triangle: its window points
 # kernel M: an open_many batch of each prove (its quotients' inputs: two
 # tables of 2^k and two of 2^k - 1 coefficients, twice at 2^16 rows), and
 # the coefficients a thread it is also timed at
@@ -413,27 +421,50 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     n = msm5.CHUNK
     xy0, inf0 = own.xy[:n], own.inf[:n]
     pts0 = msm5.base_points(xy0, inf0)
+    # kernel E's add: by threads at the field bench's 2^16 adds, by lanes
+    # at v8's triangle (20 window points)
     other = msm5.pt_dbl(pts0)
     flags = torch.tensor([rng.random() < 0.5 for _ in range(n)],
                          dtype=torch.bool, device=dev)
-    err_e = max(points_err(msm5.pt_add(pts0, other),
-                           msm5.pt_add_plain(pts0, other)),
-                points_err(msm5.pt_add(pts0, other, flags),
-                           msm5.pt_add_plain(pts0, other, flags)))
-    check(err_e == 0, "kernel E disagrees with its plain twin")
+    tri = TRIANGLE_POINTS
+    a20, b20 = other[:tri].contiguous(), pts0[:tri].contiguous()
+    for x, y, lanes, what in ((pts0, other, False, "2^16 adds by threads"),
+                              (pts0, other, True, "2^16 adds by lanes"),
+                              (a20, b20, True, f"{tri} adds by lanes"),
+                              (a20, b20, False, f"{tri} adds by threads")):
+        for f in (None, flags[:x.shape[0]]):
+            check(torch.equal(msm5.pt_add(x, y, f, lanes=lanes),
+                              msm5.pt_add_plain(x, y, f)),
+                  f"kernel E ({what}) disagrees with its plain twin")
     e_times = dict(
-        ms=cuda_ms(lambda: msm5.pt_add(pts0, other)),
+        ms=cuda_ms(lambda: msm5.pt_add(pts0, other, lanes=False), reps=10),
         plain_ms=cuda_ms(lambda: msm5.pt_add_plain(pts0, other), reps=1),
-        flagged_ms=cuda_ms(lambda: msm5.pt_add(pts0, other, flags)),
+        flagged_ms=cuda_ms(lambda: msm5.pt_add(pts0, other, flags,
+                                               lanes=False), reps=10),
         flagged_plain_ms=cuda_ms(
-            lambda: msm5.pt_add_plain(pts0, other, flags), reps=1))
-    log(f"kernel E, 2^16 adds: {e_times['ms']:.3f} ms vs plain "
-        f"{e_times['plain_ms']:.3f} ms; flagged {e_times['flagged_ms']:.3f} "
-        f"ms vs plain {e_times['flagged_plain_ms']:.3f} ms")
-    record("msm5_pt_add", "quill_tpu_torch/csrc/msm5.cu",
-           "quill_tpu/fields/pallas8.py:475 (_stacked_combine_kernel)",
-           12 * n, 3 * n * PT, shape="2^16 elementwise adds",
-           max_abs_err=err_e, **e_times)
+            lambda: msm5.pt_add_plain(pts0, other, flags), reps=1),
+        lanes_2_16_ms=cuda_ms(lambda: msm5.pt_add(pts0, other, lanes=True),
+                              reps=10),
+        lanes_shape=f"{tri} adds by lanes (v8's triangle)",
+        lanes_ms=cuda_ms(lambda: msm5.pt_add(a20, b20, lanes=True), reps=10),
+        lanes_plain_ms=cuda_ms(lambda: msm5.pt_add_plain(a20, b20), reps=1),
+        lanes_bound_ms=bound(card, 12 * tri, 3 * tri * PT)["bound_ms"],
+        threads_20_ms=cuda_ms(lambda: msm5.pt_add(a20, b20, lanes=False),
+                              reps=10),
+        lane_max=msm5.ADD_LANE_MAX)
+    log(f"kernel E, 2^16 adds by threads: {e_times['ms']:.4f} ms vs plain "
+        f"{e_times['plain_ms']:.3f} ms; flagged {e_times['flagged_ms']:.4f} "
+        f"ms vs plain {e_times['flagged_plain_ms']:.3f} ms; by lanes "
+        f"{e_times['lanes_2_16_ms']:.4f} ms; {tri} adds by lanes "
+        f"{e_times['lanes_ms']:.4f} ms, by threads "
+        f"{e_times['threads_20_ms']:.4f} ms; equal triples")
+    record("msm5_pt_add", "quill_tpu_torch/csrc/msm5.cu + "
+           "quill_tpu_torch/csrc/tree.cuh",
+           "quill_tpu/fields/pallas8.py:475 (_stacked_combine_kernel); "
+           ":188 (_pt_add_kernel), :245 (_pt_add_b16_kernel), :283 "
+           "(_seg_combine_kernel)",
+           12 * n, 3 * n * PT, shape="2^16 elementwise adds by threads",
+           max_abs_err=0, **e_times)
     rec, sh = shifted_basis_kernel(own, card)
     records.append(rec)
     vecs = [[rng.randrange(R) for _ in range(n)] for _ in range(4)]
@@ -485,6 +516,7 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     records.append(field_kernel(dev, rng, card))
     records.append(quotient_kernel(dev, rng, card))
     records += v8_kernels(kzg_big, card)
+    records.append(fixed_base_kernel(kzg_big, card))
     return records
 
 
@@ -982,8 +1014,8 @@ def v6_kernels(kzg, kzg_big, card):
             f"{times[f'shifted_basis_{tag}_s']:.3f} s)")
         if n == V6_POINTS[0]:
             flat = sh.reshape(-1, 2, fd.NLIMB)
-            _, idx = msm6.sort_keys(fd.from_mont(s, fd.FR), bs.inf,
-                                    sh.shape[1])
+            keys, idx = msm6.sort_keys(fd.from_mont(s, fd.FR), bs.inf,
+                                       sh.shape[1])
             err = points_err(msm6.level0(flat, idx),
                              msm6.level0_plain(flat, idx))
             check(err == 0, "kernel K disagrees with its plain twin")
@@ -1001,10 +1033,79 @@ def v6_kernels(kzg, kzg_big, card):
                 library_ms=None)
             log(f"kernel K, {k} pairs: {rec['ms']:.3f} ms vs plain "
                 f"{rec['plain_ms']:.3f} ms")
-            del flat, idx
+            walk = v6_walk(keys, flat, idx, card)
+            del flat, idx, keys
         del own, bs, sh, s
     rec.update(times)
-    return [rec]
+    return [rec, walk]
+
+
+def v6_walk(keys, flat, idx, card):
+    """Kernel E's walk mode at a v6 MSM's real shapes (its 2^16 - 1 bucket
+    counts over its tree), by threads and by lanes, against the chain of
+    flagged kernel E launches and the plain chain with `torch.equal`; the
+    fused top as the prefix of the tree's top level against Hillis-Steele
+    (kernel E launches) as points.  The bound counts this data's adds: one
+    a set bit of a count below the top's level.  -> the walk's record,
+    with the top's times."""
+    import torch
+
+    from quill_tpu_torch.ec import device as ed
+    from quill_tpu_torch.ec import msm6
+
+    dev = keys.device
+    cnt = torch.searchsorted(keys, torch.arange(
+        msm6.NQ, dtype=torch.int32, device=dev), right=True)
+    levels = msm6.tree(flat, idx)
+    kmin, w = len(levels), levels[-1].shape[0]
+    top = msm6.top_prefix(levels[-1])
+    hs = msm6.prefix(levels[-1])
+    check(bool(ed.points_equal(top, hs).all()),
+          "the fused top's prefixes are not v6's prefix sums")
+    want = msm6.queries(cnt, flat, idx, levels, top)
+    check(torch.equal(want, msm6.queries(cnt, flat, idx, levels, top,
+                                         plain=True)),
+          "the chain of kernel E launches disagrees with the plain chain")
+    for lanes, how in ((False, "threads"), (True, "lanes")):
+        check(torch.equal(msm6.query_walk(cnt, flat, idx, levels, top, lanes),
+                          want), f"v6's query walk ({how}) disagrees with "
+              f"the chain")
+    low = cnt & ((1 << kmin) - 1)
+    adds = sum(int(((low >> k) & 1).sum()) for k in range(kmin))
+    times = dict(
+        ms=cuda_ms(lambda: msm6.query_walk(cnt, flat, idx, levels, top),
+                   reps=10),
+        threads_ms=cuda_ms(lambda: msm6.query_walk(cnt, flat, idx, levels,
+                                                   top, False), reps=10),
+        lanes_ms=cuda_ms(lambda: msm6.query_walk(cnt, flat, idx, levels,
+                                                 top, True), reps=10),
+        chain_ms=cuda_ms(lambda: msm6.queries(cnt, flat, idx, levels, top)),
+        plain_ms=cuda_ms(lambda: msm6.queries(cnt, flat, idx, levels, top,
+                                              plain=True), reps=1),
+        top_shape=f"the tree's top level, {w} points: its prefix sums",
+        top_ms=cuda_ms(lambda: msm6.top_prefix(levels[-1]), reps=10),
+        top_chain_ms=cuda_ms(lambda: msm6.prefix(levels[-1])),
+        top_bound_ms=bound(card, 12 * top_adds(w), 2 * w * PT)["bound_ms"])
+    log(f"v6's query walk, {msm6.NQ} buckets over {kmin} levels ({adds} "
+        f"adds): {times['ms']:.3f} ms (threads {times['threads_ms']:.3f}, "
+        f"lanes {times['lanes_ms']:.3f}) vs the chain of kernel E launches "
+        f"{times['chain_ms']:.3f} ms, plain {times['plain_ms']:.3f} ms; the "
+        f"top's prefix at {w} points {times['top_ms']:.3f} ms vs "
+        f"Hillis-Steele {times['top_chain_ms']:.3f} ms")
+    return dict(
+        name="msm5_query_walk", route="cuda",
+        source="quill_tpu_torch/csrc/msm5.cu + quill_tpu_torch/csrc/"
+               "query.cuh",
+        replaces="quill_tpu/ec/msm6k.py:174-247 (_qinit_fn, _qstep_fn, "
+                 "_qstep0_fn, _qstep_pair_fn: the XLA query walk), run before "
+                 "as quill_tpu/fields/pallas8.py:475 "
+                 "(_stacked_combine_kernel, flagged) a level",
+        shape=f"{msm6.NQ} bucket queries of a v6 MSM of {V6_POINTS[0]} "
+              f"points: {kmin} levels, {adds} adds, by "
+              f"{'lanes' if msm6.WALK_LANES else 'threads'}",
+        max_abs_err=0, **times,
+        **bound(card, 12 * adds, msm6.NQ * (8 + PT) + adds * PT),
+        library_ms=None)
 
 
 def field_kernel(dev, rng, card):
@@ -1168,8 +1269,91 @@ def scan_err(xs, flags=None) -> int:
                       msm8.seg_scan_plain(xs, flags).reshape(-1, 3, fd.NLIMB))
 
 
+L2_BYTES = 50e6            # the H100's L2 cache
+J_NORMALISE = 5            # products a point of a block's normalisation
+
+
+def fixed_base_kernel(kzg_big, card):
+    """Kernel J against its twin (plain sums, then `to_affine`) with
+    `torch.equal`: its table at the 2^22 + 1-point CRS's width (one launch
+    over the 4-bit host table), one 2^16-point chunk of tau powers over
+    it, and the whole CRS of 2^18 + 1 points (table and CRS, as `setup`
+    makes it, against the twin on the same powers).  The bound counts the
+    least work of a fixed-base method whose signed table fits in L2: the
+    widest such w, its windows - 1 mixed adds and ~5 products of
+    normalisation a point."""
+    import torch
+
+    from quill_tpu_torch.ec import fixed_base as fb
+    from quill_tpu_torch.fields import device as fd
+    from quill_tpu_torch.kernels import build
+    from quill_tpu_torch.pcs.kzg import _tau_from_seed
+
+    dev = kzg_big._basis.xy.device
+    crs = kzg_big._basis.length
+    tau = _tau_from_seed(0)
+    w = fb.window_for(crs)
+    w_l2 = max(v for v in range(1, 17) if fb.table_points(v) * AFF <= L2_BYTES)
+    per_point = (fb.windows(w_l2) - 1) * fb.MIXED + J_NORMALISE
+
+    def powers(n):
+        return fd.from_mont(fd.powers(tau, n, fd.FR, dev), fd.FR)
+
+    table = fb.make_table(w, dev)
+    boot = fb.boot_table(dev)
+    tab_s = fb.table_scalars(w, dev).reshape(-1, fd.NLIMB)
+    check(torch.equal(table.reshape(-1, 2, fd.NLIMB),
+                      fb.fixed_base_twin(tab_s, boot, fb.BOOT_W)),
+          "kernel J's table disagrees with its twin")
+    chunk = 1 << 16
+    s = powers(chunk)
+    check(torch.equal(fb.fixed_base(s, table, w),
+                      fb.fixed_base_twin(s, table, w)),
+          "kernel J disagrees with its twin on a 2^16-point chunk")
+    n18 = (1 << 18) + 1
+    w18 = fb.window_for(n18)
+    before = build.LAUNCHES["fixed_base"]
+    got = fb.device_tau_powers(tau, n18, dev)
+    launches18 = build.LAUNCHES["fixed_base"] - before
+    check(torch.equal(got, fb.fixed_base_twin(
+        powers(n18), fb.make_table(w18, dev), w18)),
+          f"the CRS of {n18} points disagrees with kernel J's twin")
+    del got
+    t_k = cuda_ms(lambda: fb.fixed_base(s, table, w), reps=10)
+    t_p = cuda_ms(lambda: fb.fixed_base_twin(s, table, w), reps=1)
+    t_table = cuda_ms(lambda: fb.make_table(w, dev))
+    t_table_p = cuda_ms(lambda: fb.fixed_base_twin(tab_s, boot, fb.BOOT_W),
+                        reps=1)
+    log(f"kernel J, {chunk} tau powers over the {w}-bit table: {t_k:.3f} ms "
+        f"vs plain {t_p:.3f} ms; the table ({fb.table_points(w)} points) "
+        f"{t_table:.3f} ms vs plain {t_table_p:.3f} ms; the CRS of {n18} "
+        f"points at w = {w18}: {launches18} launches, equal to the twin")
+    return dict(
+        name="fixed_base", route="cuda",
+        source="quill_tpu_torch/csrc/fixed_base.cu + quill_tpu_torch/csrc/"
+               "fixed_base.cuh",
+        replaces="quill_tpu/ec/fixed_base.py:90 (_k_fixed_base_chunk, XLA "
+                 "in the TPU build) and :158 (_batch_normalize, XLA)",
+        shape=f"one chunk of {chunk} tau powers over the {w}-bit signed "
+              f"table of the CRS of {crs} points ({fb.windows(w)} windows, "
+              f"affine rows out)",
+        max_abs_err=0, ms=t_k, plain_ms=t_p,
+        **bound(card, per_point * chunk, chunk * (FE + AFF)),
+        library_ms=None,
+        bound_w=w_l2, bound_products_a_point=per_point,
+        bound_as_first_counted_ms=bound(card, 12 * 64 * chunk,
+                                        chunk * (FE + PT))["bound_ms"],
+        crs_bound_ms=bound(card, per_point * crs,
+                           crs * (FE + AFF))["bound_ms"],
+        crs_bound_as_first_counted_ms=bound(card, 12 * 64 * crs,
+                                            crs * (FE + PT))["bound_ms"],
+        w=w, table_points=fb.table_points(w), table_ms=t_table,
+        table_plain_ms=t_table_p,
+        crs_2_18_w=w18, crs_2_18_launches=launches18)
+
+
 def v8_kernels(kzg_big, card):
-    """J on one CRS chunk of 2^16 tau powers; I on one v8 chunk's scans
+    """I on one v8 chunk's scans
     (2^16 uniform scalars: 20 windows x 256 lanes of 256 sorted entries,
     then the block totals, then the triangle's 20 x 32 lanes of 256
     buckets), and at the chunk and block-scan shapes on every adversarial
@@ -1178,46 +1362,18 @@ def v8_kernels(kzg_big, card):
     v8 MSM of 2^22 uniform scalars against kernels C and D."""
     import torch
 
-    from quill_tpu_torch.ec import curve, msm8
+    from quill_tpu_torch.ec import msm8
     from quill_tpu_torch.ec import device as ed
-    from quill_tpu_torch.ec import fixed_base as fb
     from quill_tpu_torch.ec import msm as M
     from quill_tpu_torch.fields import device as fd
     from quill_tpu_torch.fields.bn254 import R
-    from quill_tpu_torch.pcs.kzg import _tau_from_seed
 
     bb = kzg_big._basis
     dev = bb.xy.device
     out = []
 
-    # J: one launch of the CRS build
-    chunk = fb.CHUNK
-    powers = fd.from_mont(fd.powers(_tau_from_seed(0), chunk, fd.FR, dev),
-                          fd.FR)
-    table = fb.build_table(curve.g1_generator(), dev)
-    err_j = points_err(fb.fixed_base(powers, table),
-                       fb.fixed_base_plain(powers, table))
-    check(err_j == 0, "kernel J disagrees with its plain twin")
-    t_k = cuda_ms(lambda: fb.fixed_base(powers, table))
-    t_p = cuda_ms(lambda: fb.fixed_base_plain(powers, table), reps=1)
-    log(f"kernel J, {chunk} tau powers: {t_k:.3f} ms vs plain {t_p:.3f} ms")
-    crs = bb.length
-    out.append(dict(
-        name="fixed_base", route="cuda",
-        source="quill_tpu_torch/csrc/fixed_base.cu",
-        replaces="quill_tpu/ec/fixed_base.py:89 (_k_fixed_base_chunk, XLA "
-                 "in the TPU build)",
-        shape=f"one CRS chunk: {chunk} tau powers x 64 table adds (the "
-              f"CRS of {crs} points takes {-(-crs // chunk)} launches)",
-        max_abs_err=err_j, ms=t_k, plain_ms=t_p,
-        **bound(card, 12 * fb.FB_WINDOWS * chunk, chunk * (FE + PT)),
-        library_ms=None,
-        crs_bound_ms=bound(card, 12 * fb.FB_WINDOWS * crs,
-                           crs * (FE + PT))["bound_ms"]))
-    del powers
-
     # I and E on one chunk of a 2^22-point MSM
-    nbig = crs - 1
+    nbig = bb.length - 1
     s_big = uniform_scalars(nbig, dev, 1234, [0, 1, R - 1, R - 2] + [
         8191 << (13 * w) for w in range(19)])
     canon = fd.from_mont(s_big[:msm8.CHUNK], fd.FR)
@@ -1434,13 +1590,15 @@ def fibonacci(rows: int):
 
 
 def crs_phase(engine, host_kzg, rng):
-    """The device CRS of the 2^20-row path (2^22 + 1 points, `setup`),
-    held against the host CRS: its
+    """The device CRS of the 2^20-row path (2^22 + 1 points, `setup`: kernel
+    J's table, then the CRS, two launches), held against the host CRS: its
     first 2^18 + 1 points, and CRS_SAMPLES later ones against native
-    scalar products.  -> (kzg, seconds, launches)."""
+    scalar products.  Its parts are timed apart after it: the tau powers
+    (plain torch) and the table.  -> (kzg, seconds, launches)."""
     import torch
 
     from quill_tpu_torch.ec import curve, native_ec
+    from quill_tpu_torch.ec import fixed_base as fb
     from quill_tpu_torch.fields import device as fd
     from quill_tpu_torch.fields.bn254 import R
     from quill_tpu_torch.kernels import build
@@ -1467,8 +1625,17 @@ def crs_phase(engine, host_kzg, rng):
         -1, fd.NLIMB), fd.FQ)
     check(got == [c for p in want for c in (p.x.v, p.y.v)],
           "the device CRS differs from native EC at sampled indices")
-    log(f"CRS: {count + 1} points on the device in {secs:.1f}s (kernel J "
-        f"x{launches['fixed_base']}); the first {n} equal the host CRS, "
+    check(launches["fixed_base"] <= 4, "the CRS took more than 4 kernel J "
+          "launches")
+    dev = xy.device
+    w = fb.window_for(count + 1)
+    powers_ms = cuda_ms(lambda: fd.from_mont(fd.powers(tau, count + 1, fd.FR,
+                                                       dev), fd.FR), reps=1)
+    table_ms = cuda_ms(lambda: fb.make_table(w, dev), reps=1)
+    log(f"CRS: {count + 1} points on the device in {secs:.3f}s (kernel J "
+        f"x{launches['fixed_base']}, w = {w}; apart: the tau powers "
+        f"{powers_ms:.1f} ms of plain torch, the table "
+        f"{table_ms:.1f} ms); the first {n} equal the host CRS, "
         f"{CRS_SAMPLES} sampled later ones equal native EC")
     return kzg, secs, launches
 
@@ -1609,6 +1776,10 @@ def main():
     check(v6["routes"]["v6"] > 0 and v6["routes"]["v8"] == 0
           and "cd" not in v6["routes"],
           "the msm_impl 6 prove took no v6 MSM, or took C + D or v8")
+    check(v6["launches"]["msm5_query_walk"] == v6["routes"]["v6"]
+          and v6["launches"]["msm5_pt_add"] == 0,
+          "the v6 prove did not take one query walk a v6 MSM, or added with "
+          "kernel E")
     v6_launches = v6["launches"]
     del v6, engine6
     log(f"2^{LOG2_ROWS}-row path on v6: {time.time() - t0:.1f}s")

@@ -10,8 +10,10 @@
 
 #include "bn254.cuh"
 #include "bucket.cuh"
+#include "fixed_base.cuh"
 #include "ladder.cuh"
 #include "ntt.cuh"
+#include "query.cuh"
 #include "quotient.cuh"
 #include "seg_scan.cuh"
 #include "sumcheck.cuh"
@@ -588,6 +590,101 @@ int q_tree_top(const uint32_t* x, int w, long blocks, int tree,
     for (int i = 0; i < 6 * w; ++i) piece_copy(out + 4 * i, &sh[4 * i]);
   }
   return 0;
+}
+
+// Kernel J (csrc/fixed_base.cu: fixed_base_kernel) emulated block by block:
+// each phase of fixed_base.cuh for the FB_NT threads in turn, every thread's
+// running products c kept for it, as the kernel's threads keep theirs.
+// scalars: (n, 8) canonical; table: (fb_windows(w) 2^(w-1), 16) affine;
+// out: (n, 16) affine; *flag set to 1 for a point at infinity; ppt points
+// a thread (1 .. FB_PPT; the launch takes fb_ppt's).
+void q_fixed_base_blocked(const uint32_t* scalars, long n, const uint32_t* table,
+                          int w, int ppt, uint32_t* out, int* flag) {
+  std::vector<uint32_t> sh(fb_words());
+  std::vector<Fe> c((size_t)FB_NT * FB_PPT);
+  const int nwin = fb_windows(w), span = FB_NT * ppt;
+  for (long long b = 0; b < fb_blocks(n, ppt); ++b) {
+    for (int t = 0; t < FB_NT; ++t)
+      for (int j = 0; j < ppt; ++j)
+        if (fb_compute(scalars, n, table, w, nwin, b, span, j * FB_NT + t,
+                       sh.data()))
+          *flag = 1;
+    for (int t = 0; t < FB_NT; ++t)
+      fb_chain(sh.data(), t, ppt, &c[FB_PPT * t]);
+    for (int lvl = FB_NT / 2; lvl >= 1; lvl >>= 1)
+      for (int t = 0; t < lvl; ++t) fb_heap_up(sh.data(), lvl + t);
+    fb_heap_invert(sh.data());
+    for (int lvl = 1; lvl < FB_NT; lvl <<= 1)
+      for (int t = 0; t < lvl; ++t) fb_heap_down(sh.data(), lvl + t);
+    for (int t = 0; t < FB_NT; ++t)
+      fb_back(sh.data(), t, ppt, &c[FB_PPT * t]);
+    for (int i = 0; i < 4 * span; ++i) fb_store(out, n, b, span, i, sh.data());
+  }
+}
+
+// fixed_base.cuh's widest block span, window count and points a thread for
+// a launch
+int q_fb_span() { return FB_SPAN; }
+int q_fb_ppt(long n, int sms, int minb) { return fb_ppt(n, sms, minb); }
+int q_fb_windows(int w) { return fb_windows(w); }
+
+// One bucket's signed digits (fb_digit) for a test: out[k], k < nwin
+void q_fb_digits(const uint32_t* s, int w, int* out) {
+  uint32_t carry = 0u;
+  for (int k = 0; k < fb_windows(w); ++k) out[k] = fb_digit(s, w, k, &carry);
+}
+
+// Kernel E's walk mode (csrc/msm5.cu: query_walk_kernel) emulated: by
+// threads walk_query itself; by lanes the same steps with g1_add_split
+// (the six lanes' steps in turn), identities added where a bit is clear,
+// as the lanes do.  cnt: (nq,) int64; levels: kmin - 1 host pointers.
+void q_query_walk(const long long* cnt, long nq, const uint32_t* top,
+                  const unsigned long long* levels, int kmin,
+                  const uint32_t* sh, const int* idx, int lanes,
+                  uint32_t* out) {
+  WalkLevels lv;
+  for (int k = 0; k < WALK_MAX; ++k)
+    lv.p[k] = k < kmin - 1 ? (const uint32_t*)levels[k] : nullptr;
+  for (long i = 0; i < nq; ++i) {
+    if (!lanes) {
+      g1_store(out + PT_WORDS * i, walk_query(cnt[i], kmin, top, lv, sh, idx));
+      continue;
+    }
+    const long long c = cnt[i];
+    G1P acc = walk_start(c, kmin, top);
+    long long off = (c >> kmin) << kmin;
+    for (int k = kmin - 1; k >= 0; --k) {
+      G1P node = g1_identity(), other = node;
+      const bool has = walk_node(c, k, off, lv, sh, idx, &node);
+      if (has) other = acc;
+      const G1P r = g1_add_split(node, other);
+      if (has) {
+        acc = r;
+        off += 1LL << k;
+      }
+    }
+    g1_store(out + PT_WORDS * i, acc);
+  }
+}
+
+// Kernel E's add (pt_add_kernel) emulated block by block: tree.cuh's
+// staging maps, an add a thread (S = 128, g1_add) or a group
+// (S = ADD_LANE_SPAN, g1_add_split).  flags may be NULL.
+void q_pt_add_blocked(const uint32_t* a, const uint32_t* b,
+                      const uint8_t* flags, long n, int lanes, uint32_t* out) {
+  const int S = lanes ? ADD_LANE_SPAN : 128;
+  std::vector<uint32_t> sh(25 * 2 * S);
+  for (long long r0 = 0; r0 < n; r0 += S) {
+    for (int i = 0; i < 12 * S; ++i) add_load(a, b, n, r0, S, i, sh.data());
+    for (int k = 0; k < S; ++k) {
+      if (r0 + k >= n || (flags != nullptr && flags[r0 + k])) continue;
+      const G1P p = pt_ld(tree_slot(sh.data(), k));
+      const G1P q = pt_ld(tree_slot(sh.data(), S + k));
+      pt_st(tree_slot(sh.data(), k), lanes ? g1_add_split(p, q) : g1_add(p, q));
+    }
+    for (int i = 0; i < 6 * S; ++i)
+      add_store(flags, n, r0, S, i, sh.data(), out);
+  }
 }
 
 }  // extern "C"

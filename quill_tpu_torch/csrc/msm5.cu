@@ -2,8 +2,15 @@
 // prefix tree), quill_tpu_torch/ec/msm5.py.
 //
 // E  pt_add      replaces quill_tpu/fields/pallas8.py:_stacked_combine_kernel
-//                (pt_add_stacked and its flagged mode seg_combine_stacked):
-//                out[i] = flags && flags[i] ? b[i] : a[i] + b[i].
+//                (pt_add_stacked and its flagged mode seg_combine_stacked;
+//                :188 _pt_add_kernel, :245 _pt_add_b16_kernel, :283
+//                _seg_combine_kernel): out[i] = flags && flags[i] ? b[i] :
+//                a[i] + b[i], staged through shared memory as 16-byte
+//                pieces, one add a thread or, for small launches, one a
+//                group of six lanes (below).
+//    query_walk  replaces the XLA query walk of quill_tpu/ec/msm6k.py:174-247
+//                (one flagged pt_add launch a level before): v6's 2^16 - 1
+//                bucket queries in one launch (csrc/query.cuh).
 //    shifted_basis  replaces E's doubling ladder (quill_tpu/ec/msm3.py:90
 //                _shift_doubling, one _stacked_combine_kernel launch a
 //                doubling) and the batch normalisation after it: for n
@@ -47,23 +54,87 @@
 
 #include "bn254.cuh"
 #include "ladder.cuh"
+#include "query.cuh"
 #include "tree.cuh"
 
 using namespace bn254;
 
 #define MSM5_BLOCK 128
 
+// E's add: block b stages rows [S b, S (b + 1)) of a and b in slots 0 ..
+// S - 1 and S .. 2S - 1 (tree.cuh's slot map) as 16-byte pieces, adds each
+// unflagged pair into its a slot, one add a thread (S = MSM5_BLOCK) or one
+// a group of six lanes (S = ADD_LANE_SPAN, g1_add_lanes), and copies out
+// the a slot, or the b slot where the row is flagged.
+template <bool LANES>
 __global__ void __launch_bounds__(MSM5_BLOCK)
-pt_add_kernel(const uint32_t* a, const uint32_t* b,
-              const uint8_t* __restrict__ flags, long long n, uint32_t* out) {
-  long long i = (long long)blockIdx.x * MSM5_BLOCK + threadIdx.x;
-  if (i >= n) return;
-  G1P q = g1_load(b + 24 * i);
-  if (flags != nullptr && flags[i]) {
-    g1_store(out + 24 * i, q);
+pt_add_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+              const uint8_t* __restrict__ flags, long long n,
+              uint32_t* __restrict__ out) {
+  constexpr int S = LANES ? ADD_LANE_SPAN : MSM5_BLOCK;
+  extern __shared__ uint4 add_sh[];
+  uint32_t* sh = reinterpret_cast<uint32_t*>(add_sh);
+  const long long r0 = (long long)blockIdx.x * S;
+  for (int i = threadIdx.x; i < 12 * S; i += MSM5_BLOCK)
+    add_load(a, b, n, r0, S, i, sh);
+  __syncthreads();
+  auto live = [&](int k) {
+    return r0 + k < n && !(flags != nullptr && flags[r0 + k]);
+  };
+  if (!LANES) {
+    const int k = threadIdx.x;
+    if (live(k))
+      pt_st(tree_slot(sh, k),
+            g1_add(pt_ld(tree_slot(sh, k)), pt_ld(tree_slot(sh, S + k))));
+  } else {
+    group_items(
+        S, TREE_LANE_GROUPS, sh + 25 * 2 * S, live,
+        [&](int k, G1P* p, G1P* q) {
+          *p = pt_ld(tree_slot(sh, k));
+          *q = pt_ld(tree_slot(sh, S + k));
+        },
+        [&](int k, const G1P& r) { pt_st(tree_slot(sh, k), r); });
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 6 * S; i += MSM5_BLOCK)
+    add_store(flags, n, r0, S, i, sh, out);
+}
+
+// E's walk mode, v6's bucket queries: one bucket a thread, or one a group
+// of six lanes (five groups a warp; csrc/query.cuh has the walk)
+template <bool LANES>
+__global__ void __launch_bounds__(MSM5_BLOCK)
+query_walk_kernel(const long long* __restrict__ cnt, long long nq,
+                  const uint32_t* __restrict__ top, WalkLevels lv, int kmin,
+                  const uint32_t* __restrict__ sh, const int* __restrict__ idx,
+                  uint32_t* __restrict__ out) {
+  if (!LANES) {
+    const long long i = (long long)blockIdx.x * MSM5_BLOCK + threadIdx.x;
+    if (i < nq) pt_st(out + PT_WORDS * i,
+                      walk_query(cnt[i], kmin, top, lv, sh, idx));
     return;
   }
-  g1_store(out + 24 * i, g1_add(g1_load(a + 24 * i), q));
+  __shared__ uint4 walk_sh[MSM5_BLOCK / 32 * 6 * 48 / 4];
+  const int lane = threadIdx.x & 31, gw = lane / 6, g = lane % 6;
+  const int warp = threadIdx.x >> 5;
+  const long long q = (long long)blockIdx.x * TREE_LANE_GROUPS + warp * 5 + gw;
+  const bool on = gw < 5 && q < nq;
+  uint32_t* xs = reinterpret_cast<uint32_t*>(walk_sh) + 48 * (warp * 6 + gw);
+  const long long c = on ? cnt[q] : 0;
+  G1P acc = walk_start(c, kmin, top);
+  long long off = (c >> kmin) << kmin;
+#pragma unroll 1
+  for (int k = kmin - 1; k >= 0; --k) {
+    G1P node = g1_identity(), other = node;
+    const bool has = walk_node(c, k, off, lv, sh, idx, &node);
+    if (has) other = acc;
+    const G1P r = g1_add_lanes(node, other, g, xs);
+    if (has) {
+      acc = r;
+      off += 1LL << k;
+    }
+  }
+  if (on && g == 0) pt_st(out + PT_WORDS * q, acc);
 }
 
 __global__ void __launch_bounds__(MSM5_BLOCK)
@@ -87,29 +158,6 @@ tree_up0_kernel(const uint32_t* __restrict__ leaves, long long k,
 // an SM): 134 registers in tree mode, 128 and an 8-byte stack frame in
 // reduce mode.
 #define TREE_MINB 2
-
-// Items [0, n) of a phase, one a group of six lanes (g1_add_lanes), in
-// rounds of `groups` groups (five a warp; lanes 30 and 31 and the groups
-// past n add identities, so that every lane meets every __syncwarp):
-// live(k) says whether item k is needed, ops(k, &p, &q) gives its operands
-// and st(k, r) stores its sum, from lane 0 of its group.  scratch: 48 words
-// for each group of six lanes of the block (six a warp).
-template <class Live, class Ops, class Store>
-__device__ __forceinline__ void group_items(int n, int groups,
-                                            uint32_t* scratch, Live live,
-                                            Ops ops, Store st) {
-  const int lane = threadIdx.x & 31, gw = lane / 6, g = lane % 6;
-  const int group = (threadIdx.x >> 5) * 5 + gw;
-  uint32_t* xs = scratch + 48 * ((threadIdx.x >> 5) * 6 + gw);
-  for (int j0 = 0; j0 < n; j0 += groups) {
-    const int k = j0 + group;
-    const bool on = gw < 5 && k < n && live(k);
-    G1P p = g1_identity(), q = p;
-    if (on) ops(k, &p, &q);
-    const G1P r = g1_add_lanes(p, q, g, xs);
-    if (on && g == 0) st(k, r);
-  }
-}
 
 // G: block b stages level l's rows [S b, S (b + 1)), adds level l + 1's
 // pairs in shared memory and, for L = 2, level l + 2's, and writes both
@@ -293,14 +341,48 @@ static unsigned blocks(long long n) {
   return (unsigned)((n + MSM5_BLOCK - 1) / MSM5_BLOCK);
 }
 
-// a, b, out: (n, 24) words; flags: (n,) bytes or NULL.  out may not alias
-// a or b.
+// a, b, out: (n, 24) words, 16-byte aligned; flags: (n,) bytes or NULL;
+// lanes: one add a group of six lanes.  out may not alias a or b.
 extern "C" int quill_pt_add(const void* a, const void* b, const void* flags,
-                            long long n, void* out, void* stream) {
+                            long long n, int lanes, void* out, void* stream) {
   if (n <= 0) return 0;
-  pt_add_kernel<<<blocks(n), MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)a, (const uint32_t*)b, (const uint8_t*)flags, n,
-      (uint32_t*)out);
+  const int S = lanes ? ADD_LANE_SPAN : MSM5_BLOCK;
+  const int bytes = 4 * (25 * 2 * S + (lanes ? MSM5_BLOCK / 32 * 6 * 48 : 0));
+  const unsigned grid = (unsigned)((n + S - 1) / S);
+  if (lanes)
+    pt_add_kernel<true><<<grid, MSM5_BLOCK, bytes, (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (const uint32_t*)b, (const uint8_t*)flags, n,
+        (uint32_t*)out);
+  else
+    pt_add_kernel<false><<<grid, MSM5_BLOCK, bytes, (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (const uint32_t*)b, (const uint8_t*)flags, n,
+        (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// v6's bucket queries: cnt: (nq,) int64 counts; top: (>= max(cnt) >> kmin,
+// 24) the top level's prefixes; levels: kmin - 1 device pointers, level k
+// (1 <= k < kmin) at levels[k - 1], rows of 24 words; sh: (rows, 16) the
+// shifted basis; idx: the sorted leaves' rows of sh; out: (nq, 24)
+extern "C" int quill_query_walk(const void* cnt, long long nq, const void* top,
+                                const unsigned long long* levels, int kmin,
+                                const void* sh, const void* idx, int lanes,
+                                void* out, void* stream) {
+  if (nq <= 0) return 0;
+  if (kmin < 1 || kmin - 1 > WALK_MAX) return (int)cudaErrorInvalidValue;
+  WalkLevels lv;
+  for (int k = 0; k < WALK_MAX; ++k)
+    lv.p[k] = k < kmin - 1 ? (const uint32_t*)levels[k] : nullptr;
+  const long long per = lanes ? TREE_LANE_GROUPS : MSM5_BLOCK;
+  const unsigned grid = (unsigned)((nq + per - 1) / per);
+  if (lanes)
+    query_walk_kernel<true><<<grid, MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const long long*)cnt, nq, (const uint32_t*)top, lv, kmin,
+        (const uint32_t*)sh, (const int*)idx, (uint32_t*)out);
+  else
+    query_walk_kernel<false><<<grid, MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const long long*)cnt, nq, (const uint32_t*)top, lv, kmin,
+        (const uint32_t*)sh, (const int*)idx, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -428,4 +428,56 @@ QHD void top_down_store(uint32_t* sh, int off, int off1, int j,
   pt_st(a, r);
 }
 
+// ---------------------------------------------------------------------------
+// kernel E's add
+// ---------------------------------------------------------------------------
+
+#define ADD_LANE_SPAN TREE_LANE_GROUPS  // E's add by lanes: one round a block
+
+// Kernel E's add (csrc/msm5.cu: pt_add_kernel) stages a block's S rows of
+// a and b in slots 0 .. S - 1 and S .. 2S - 1.  Piece i (0 .. 12 S) of a block's rows from r0: a's row r0 +
+// r into slot r, b's into slot S + r, 16 bytes each; rows past n are left
+QHD void add_load(const uint32_t* a, const uint32_t* b, long long n,
+                  long long r0, int S, int i, uint32_t* sh) {
+  const int which = i / (6 * S), r = (i % (6 * S)) / 6, c = i % 6;
+  if (r0 + r < n)
+    piece_copy(tree_slot(sh, which * S + r) + 4 * c,
+               (which ? b : a) + PT_WORDS * (r0 + r) + 4 * c);
+}
+
+// piece i (0 .. 6 S) out: the a slot's sum, or b's row where flagged
+QHD void add_store(const uint8_t* flags, long long n, long long r0, int S,
+                   int i, const uint32_t* sh, uint32_t* out) {
+  const int r = i / 6, c = i % 6;
+  const long long row = r0 + r;
+  if (row >= n) return;
+  const int slot = flags != nullptr && flags[row] ? S + r : r;
+  piece_copy(out + PT_WORDS * row + 4 * c, tree_slot(sh, slot) + 4 * c);
+}
+
+#ifdef __CUDACC__
+// Items [0, n) of a phase, one a group of six lanes (g1_add_lanes), in
+// rounds of `groups` groups (five a warp; lanes 30 and 31 and the groups
+// past n add identities, so that every lane meets every __syncwarp):
+// live(k) says whether item k is needed, ops(k, &p, &q) gives its operands
+// and st(k, r) stores its sum, from lane 0 of its group.  scratch: 48 words
+// for each group of six lanes of the block (six a warp).
+template <class Live, class Ops, class Store>
+__device__ __forceinline__ void group_items(int n, int groups,
+                                            uint32_t* scratch, Live live,
+                                            Ops ops, Store st) {
+  const int lane = threadIdx.x & 31, gw = lane / 6, g = lane % 6;
+  const int group = (threadIdx.x >> 5) * 5 + gw;
+  uint32_t* xs = scratch + 48 * ((threadIdx.x >> 5) * 6 + gw);
+  for (int j0 = 0; j0 < n; j0 += groups) {
+    const int k = j0 + group;
+    const bool on = gw < 5 && k < n && live(k);
+    G1P p = g1_identity(), q = p;
+    if (on) ops(k, &p, &q);
+    const G1P r = g1_add_lanes(p, q, g, xs);
+    if (on && g == 0) st(k, r);
+  }
+}
+#endif
+
 }  // namespace bn254

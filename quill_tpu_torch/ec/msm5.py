@@ -64,6 +64,11 @@ TOP = 512
 # `csrc/tree.cuh: TREE_LANE_LEVEL` (held to it by the same test): two-level
 # launches over at most this many points give an add to six lanes
 LANE_LEVEL = 1 << 16
+# kernel E's adds go one a group of six lanes up to this many points (one a
+# thread above it): on an H100 (PERF.md, PR 11) lanes took 1.5x the time
+# of threads at 2^16 points, and from 2^8 to 2^14 both were within the
+# ~20-30 us of a launch from Python
+ADD_LANE_MAX = 1 << 10
 
 _FN = {}
 
@@ -73,7 +78,10 @@ def _fns():
         lib = build.lib("msm5")
         vp, i64 = build.VP, build.I64
         _FN["add"] = build.bind(lib, "quill_pt_add",
-                                [vp, vp, vp, i64, vp, vp])
+                                [vp, vp, vp, i64, build.I32, vp, vp])
+        _FN["walk"] = build.bind(lib, "quill_query_walk",
+                                 [vp, i64, vp, vp, build.I32, vp, vp,
+                                  build.I32, vp, vp])
         _FN["dbl"] = build.bind(lib, "quill_pt_dbl",
                                 [vp, i64, build.I32, vp, vp])
         _FN["shifted"] = build.bind(
@@ -121,22 +129,26 @@ def _out(n: int, like: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def pt_add(a, b, flags=None):
+def pt_add(a, b, flags=None, lanes=None):
     """Kernel E: a + b for (n, 3, 8) points, elementwise; with an (n,)
-    bool `flags`, fb ? b : a + b (`seg_combine_stacked`)."""
+    bool `flags`, fb ? b : a + b (`seg_combine_stacked`).  One add a group
+    of six lanes for at most ADD_LANE_MAX points (`lanes` None), else one a
+    thread; either way staged through shared memory, the same triples."""
     if not a.is_cuda:
         return pt_add_plain(a, b, flags)
-    _check_points(a, 3, "a")
-    _check_points(b, 3, "b")
+    _check_tree(a, "a")
+    _check_tree(b, "b")
     _require(a.shape == b.shape, "a and b differ in shape")
     if flags is not None:
         _require(flags.is_cuda and flags.dtype == torch.bool
                  and flags.is_contiguous() and flags.shape == a.shape[:1],
                  "flags must be a contiguous (n,) bool tensor on CUDA")
-    out = _out(a.shape[0], a)
+    n = a.shape[0]
+    lanes = n <= ADD_LANE_MAX if lanes is None else lanes
+    out = _out(n, a)
     rc = _fns()["add"](a.data_ptr(), b.data_ptr(),
-                       None if flags is None else flags.data_ptr(),
-                       a.shape[0], out.data_ptr(), build.stream_ptr())
+                       None if flags is None else flags.data_ptr(), n,
+                       int(lanes), out.data_ptr(), build.stream_ptr())
     build.check(rc, "msm5_pt_add")
     build.count("msm5_pt_add")
     return out

@@ -1,7 +1,7 @@
 """The v6 MSM route: one global sort over a flat 16-window space, a binary
 tree over the sorted leaves and Fenwick prefix queries; kernel K
-(`csrc/msm6.cu`) and its plain PyTorch twin, with kernels E and G
-(`csrc/msm5.cu`) for the projective adds.
+(`csrc/msm6.cu`) and its plain PyTorch twin, with kernels E, G and the
+fused top (`csrc/msm5.cu`) for the projective adds.
 
 Counterpart of `quill_tpu/ec/msm6.py` and `quill_tpu/ec/msm6k.py`, the
 route `QUILL_MSM_IMPL=6` gives the JAX engine (`TorchEngine(msm_impl="6")`
@@ -28,17 +28,20 @@ at most `msm_shift_max` points.  One MSM over n points:
 4. tree: node s of level k is the sum of the sorted leaves
    [s 2^k, (s + 1) 2^k).  Kernel K builds level 1 from the shifted basis
    through idx, kernel G the levels above from adjacent pairs, two a launch,
-   up to a top level of at most 1024 nodes (`_MIN_H`); every level is kept.  The JAX
+   up to a top level of at most MIN_TOP = 512 nodes (the JAX package's
+   `_MIN_H` is 1024); every level is kept.  The JAX
    package lays the leaves out in bit-reversed order (`msm6.py:346-355`)
    only so that its Pallas blocks pair contiguous halves, and gathers them
    into a leaf array first (`_k_sort_gather`); kernel K gathers them itself;
 5. queries (`msm6k.py:137-249`): the inclusive prefix sums of the top level
-   (kernel E, at most 10 Hillis-Steele steps), then, for every bucket
+   (the fused top's tree mode, one launch), then, for every bucket
    b < 2^16 - 1, the sum P[c_b] of the first c_b sorted leaves, c_b the
    number of keys <= b: the top prefix gives its coarse part, and one level
-   at a time from the top down a node is added where bit k of c_b is set
-   (kernel E's flagged mode; gather indices clamped where the bit is not
-   set, `msm6k.py:202`);
+   at a time from the top down a node is added where bit k of c_b is set,
+   all in kernel E's one walk launch (`csrc/query.cuh`).  The plain twins
+   run the chain the port ran before: Hillis-Steele prefix sums (`prefix`)
+   and one flagged kernel E launch a level with plain-torch gathers
+   (`queries`);
 6. reduce and finalize (`msm6k.py:255-279`, `msm6.py:396-420`): the
    2^16 - 1 query results and one identity summed by halving (the fused
    top's reduce mode, `msm5.tree_reduce`),
@@ -47,6 +50,8 @@ at most `msm_shift_max` points.  One MSM over n points:
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -62,7 +67,13 @@ WBITS = 16
 NWIN = 16
 NBUCK = 1 << WBITS
 NQ = NBUCK - 1             # bucket queries, b = 0 .. 2^16 - 2
-MIN_TOP = 1024             # `_MIN_H`: the widest top level of the tree
+# the widest top level of the tree: the fused top's width (`msm5.TOP`),
+# which takes its prefixes in one launch; the JAX package's `_MIN_H` is
+# 1024, one level less (the same points)
+MIN_TOP = msm5.TOP
+# v6's query walk gives a bucket to a group of six lanes (else to a
+# thread), by measurement on an H100 (PERF.md, PR 11)
+WALK_LANES = False
 CHUNK = msm5.CHUNK         # the shifted basis grows by whole chunks
 CACHE_KEY = "v6"           # of the shifted basis in TorchBasis.shifted
 
@@ -178,7 +189,8 @@ def tree(sh, idx) -> list:
 
 def prefix(x):
     """Inclusive prefix sums of (h, 3, 8) points: Hillis-Steele, one kernel
-    E launch a step."""
+    E launch a step.  The plain reference of `top_prefix` (other triples,
+    the same points); nothing on a card path calls it."""
     step = 1
     while step < x.shape[0]:
         x = torch.cat((x[:step], msm5.pt_add(x[:-step], x[step:])), 0)
@@ -186,10 +198,17 @@ def prefix(x):
     return x
 
 
-def add_where(node, acc, has):
+def top_prefix(x):
+    """The inclusive prefix sums of the top level (h <= MIN_TOP points): the
+    fused top's tree mode, one launch (`msm5.tree_top`)."""
+    return msm5.tree_top(x.contiguous())
+
+
+def add_where(node, acc, has, plain=False):
     """has ? node + acc : acc, kernel E's flagged mode (flags = ~has).  On
-    the CPU only the rows where `has` is set are added."""
-    if acc.is_cuda:
+    the CPU, or `plain`, only the rows where `has` is set are added, by
+    the plain twin."""
+    if acc.is_cuda and not plain:
         return msm5.pt_add(node.contiguous(), acc, ~has)
     out = acc.clone()
     sel = torch.nonzero(has).flatten()
@@ -197,10 +216,12 @@ def add_where(node, acc, has):
     return out
 
 
-def queries(cnt, sh, idx, levels, top):
+def queries(cnt, sh, idx, levels, top, plain=False):
     """(NQ,) counts c_b -> (NQ, 3, 8) prefixes P[c_b], from the kept levels
     (levels[k - 1] is level k), their top's prefix sums `top`, and the
-    leaves read through idx with Z = 1."""
+    leaves read through idx with Z = 1: one flagged kernel E launch a
+    level, with plain-torch gathers between them.  The plain twin of
+    `query_walk` (the same triples); nothing on a card path calls it."""
     dev = cnt.device
     kmin = len(levels)
     q = cnt >> kmin
@@ -216,9 +237,39 @@ def queries(cnt, sh, idx, levels, top):
             leaf = sh[idx[offset.clamp(max=idx.shape[0] - 1)].to(torch.int64)]
             one = fd.const(1, FQ, dev).expand(cnt.shape[0], 1, fd.NLIMB)
             node = torch.cat((leaf, one), 1)
-        acc = add_where(node, acc, has)
+        acc = add_where(node, acc, has, plain)
         offset = offset + (has.to(offset.dtype) << k)
     return acc
+
+
+def query_walk(cnt, sh, idx, levels, top, lanes=None):
+    """Kernel E's walk mode: `queries` in one launch (`csrc/query.cuh`), a
+    bucket to a thread, or to a group of six lanes (`lanes`, default
+    WALK_LANES).  cnt: (nq,) int64 counts, each at most idx's length."""
+    if not cnt.is_cuda:
+        return queries(cnt, sh, idx, levels, top)
+    kmin = len(levels)
+    msm5._require(cnt.dtype == torch.int64 and cnt.is_contiguous()
+                  and cnt.dim() == 1, "cnt must be a contiguous (nq,) int64 "
+                  "tensor")
+    msm5._require(1 <= kmin <= 41, "1 to 41 levels")
+    for t, what in [(top, "top")] + [(lv, "a level") for lv in levels]:
+        msm5._check_tree(t, what)
+    msm5._check_points(sh, 2, "sh")
+    msm5._require(sh.data_ptr() % 16 == 0 and idx.is_cuda
+                  and idx.dtype == torch.int32 and idx.is_contiguous(),
+                  "sh must be 16-byte aligned, idx contiguous int32 on CUDA")
+    ptrs = (ctypes.c_uint64 * max(kmin - 1, 1))(
+        *[lv.data_ptr() for lv in levels[:-1]])
+    nq = cnt.shape[0]
+    out = msm5._out(nq, top)
+    lanes = WALK_LANES if lanes is None else lanes
+    rc = msm5._fns()["walk"](cnt.data_ptr(), nq, top.data_ptr(), ptrs, kmin,
+                             sh.data_ptr(), idx.data_ptr(), int(lanes),
+                             out.data_ptr(), build.stream_ptr())
+    build.check(rc, "msm5_query_walk")
+    build.count("msm5_query_walk")
+    return out
 
 
 def reduce_sum(x):
@@ -241,8 +292,8 @@ def msm(basis: TorchBasis, scalars: torch.Tensor) -> curve.Jacobian:
     del keys
     flat = sh.reshape(-1, 2, fd.NLIMB)
     levels = tree(flat, idx)
-    top = prefix(levels[-1])
-    acc = queries(cnt, flat, idx, levels, top)
+    top = top_prefix(levels[-1])
+    acc = query_walk(cnt, flat, idx, levels, top)
     del levels
     s_sum = reduce_sum(torch.cat((acc, ed.identity(1, dev)), 0))
     s_pt, t_pt = ed.proj_to_jacobians(torch.cat((s_sum, top[-1:]), 0))

@@ -42,7 +42,8 @@ LIBS = {
     "quotient": "quotient.cu",
 }
 HEADERS = ["bn254.cuh", "seg_scan.cuh", "quotient.cuh", "bucket.cuh",
-           "ntt.cuh", "sumcheck.cuh", "ladder.cuh", "tree.cuh"]
+           "ntt.cuh", "sumcheck.cuh", "ladder.cuh", "tree.cuh",
+           "fixed_base.cuh", "query.cuh"]
 HOST_SOURCE = "bn254_host.cpp"
 # host library -> C source under native/
 NATIVE_LIBS = {
@@ -65,7 +66,8 @@ LAUNCHES = {
     "ntt_twiddles": 0,       # kernel B: the twiddle table (once per size)
     "msm_bucket_sum": 0,     # kernel C
     "msm_bucket_reduce": 0,  # kernel D
-    "msm5_pt_add": 0,        # kernel E
+    "msm5_pt_add": 0,        # kernel E: elementwise and flagged adds
+    "msm5_query_walk": 0,    # kernel E: v6's bucket-query walk
     "msm5_shifted_basis": 0,  # kernel E: the shifted basis, one launch
     "msm5_pt_dbl": 0,        # kernel E: k doublings (v8's triangle)
     "msm5_tree_up0": 0,      # kernel F

@@ -1,10 +1,11 @@
 """The device CRS of quill_tpu_torch (`ec/fixed_base.py`, kernel J's plain
 twin on the CPU, and `KZG.device_setup`) against the JAX package.
 
-- the fixed-base table equals `quill_tpu.ec.fixed_base._build_table`
-  entry by entry;
-- kernel J's twin on 16 scalars equals `_k_fixed_base_chunk` (plain XLA on
-  the CPU), coordinate for coordinate;
+- the port's 4-bit signed table (rows |d| 2^(4k) G, 1 <= |d| <= 8) equals
+  the nonzero entries d <= 8 of `quill_tpu.ec.fixed_base._build_table`;
+- kernel J's twin (plain sums, then `to_affine`) on 16 scalars gives the
+  points of `_k_fixed_base_chunk` (plain XLA on the CPU), over the 4-bit
+  table and over a 5-bit one; a zero scalar, the identity there, raises;
 - `KZG.device_setup` gives the G1 and G2 points of the JAX package's
   `KZG.trusted_setup` with the same seed, and reads its disk cache back;
 - `convert.from_device_basis` carries a JAX basis with `affines=None` and
@@ -14,6 +15,7 @@ Exactness is `==` on canonical integers.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from quill_tpu.ec import curve
@@ -42,18 +44,21 @@ def _coords12(arrs):
     return list(zip(*cols))
 
 
-def _triples(t):
-    vals = fd.to_ints(t.reshape(-1, fd.NLIMB), fd.FQ)
-    return [tuple(vals[3 * i:3 * i + 3]) for i in range(len(vals) // 3)]
-
-
 def test_table_matches_jax():
     from quill_tpu.ec.fixed_base import _build_table
 
-    want = _coords12(_build_table(curve.g1_generator()))
-    got = fb.build_table(curve.g1_generator())
-    assert got.shape == (fb.FB_WINDOWS, fb.FB_DIGITS, 3, fd.NLIMB)
-    assert _triples(got) == want
+    want = _coords12(_build_table(curve.g1_generator()))   # (64 x 16) rows
+    got = fb.boot_table()
+    half = 1 << (fb.BOOT_W - 1)
+    assert got.shape == (fb.windows(fb.BOOT_W), half, 2, fd.NLIMB) == (
+        64, 8, 2, 8)
+    xy = fd.to_ints(got.reshape(-1, fd.NLIMB), fd.FQ)
+    for k in range(64):
+        for d in range(1, half + 1):
+            x, y, z = want[16 * k + d]
+            assert z == 1
+            row = 2 * (k * half + d - 1)
+            assert (xy[row], xy[row + 1]) == (x, y)
 
 
 def test_kernel_j_twin_matches_jax_chunk():
@@ -67,12 +72,23 @@ def test_kernel_j_twin_matches_jax_chunk():
     out = _k_fixed_base_chunk(jnp.asarray(ints_to_limbs(scalars)),
                               jnp.asarray(tx), jnp.asarray(ty),
                               jnp.asarray(tz))
-    want = _coords12(out)
-    got = fb.fixed_base(fd.ints_to_tensor(scalars),
-                        fb.build_table(curve.g1_generator()))
-    assert _triples(got) == want
+    want = []
+    for x, y, z in _coords12(out):
+        zi = pow(z, -1, P) if z else None
+        want.append(None if z == 0 else (x * zi % P, y * zi % P))
+    assert want[0] is None and scalars[0] == 0
+    nz = scalars[1:]
     g = curve.g1_generator()
-    for s, p in zip(scalars, ed.proj_to_jacobians(got)):
+    for w, table in ((fb.BOOT_W, fb.boot_table()), (5, fb.make_table(5))):
+        got = fb.fixed_base(fd.ints_to_tensor(nz), table, w)
+        xy = fd.to_ints(got.reshape(-1, fd.NLIMB), fd.FQ)
+        assert [(xy[2 * i], xy[2 * i + 1]) for i in range(len(nz))] == \
+            want[1:]
+        with pytest.raises(ValueError):
+            fb.fixed_base(fd.ints_to_tensor(scalars[:2]), table, w)
+    for s, p in zip(nz[:3], ed.proj_to_jacobians(
+            fb.fixed_base_plain(fd.ints_to_tensor(nz[:3]), fb.boot_table(),
+                                fb.BOOT_W))):
         assert _g1(p) == _g1(g.scalar_mul(s))
 
 

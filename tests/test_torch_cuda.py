@@ -541,19 +541,54 @@ def test_kernel_i_shapes(dev, shape, pattern):
     assert _same_points(got, msm8.seg_scan_plain(xs, flags))
 
 
-def test_kernel_j_matches_plain(dev):
+@pytest.mark.parametrize("w", [4, 10, 13])
+def test_kernel_j_matches_plain(dev, w):
+    """Kernel J's table (one launch over the 4-bit host table, none at w =
+    4) and kernel J over it against the twin (plain sums, then
+    `to_affine`) with `torch.equal`, at 1,003 scalars (two blocks and a
+    part); a zero scalar raises."""
     from quill_tpu_torch.ec import fixed_base as fb
 
-    table = fb.build_table(curve.g1_generator(), dev)
-    ints = [RNG.randrange(R) for _ in range(1000)] + [0, 1, R - 1]
+    before = build.LAUNCHES["fixed_base"]
+    table = fb.make_table(w, dev)
+    assert build.LAUNCHES["fixed_base"] == before + (w != fb.BOOT_W)
+    if w != fb.BOOT_W:
+        twin = fb.fixed_base_twin(fb.table_scalars(w, dev).reshape(
+            -1, fd.NLIMB), fb.boot_table(dev), fb.BOOT_W)
+        assert torch.equal(table.reshape(-1, 2, fd.NLIMB), twin)
+    ints = [RNG.randrange(1, R) for _ in range(1000)] + [1, R - 1, 1 << 200]
     s = fd.ints_to_tensor(ints, dev)
     before = build.LAUNCHES["fixed_base"]
-    got = fb.fixed_base(s, table)
+    got = fb.fixed_base(s, table, w)
     assert build.LAUNCHES["fixed_base"] == before + 1
-    assert torch.equal(got, fb.fixed_base_plain(s, table))
+    assert torch.equal(got, fb.fixed_base_twin(s, table, w))
     g = curve.g1_generator()
-    for k, p in zip(ints[-3:], ed.proj_to_jacobians(got[-3:])):
-        assert p == g.scalar_mul(k)
+    xy = fd.to_ints(got[-3:].reshape(-1, fd.NLIMB), fd.FQ)
+    for i, k in enumerate(ints[-3:]):
+        a = g.scalar_mul(k).to_affine()
+        assert (xy[2 * i], xy[2 * i + 1]) == (a.x.v, a.y.v)
+    with pytest.raises(ValueError):
+        fb.fixed_base(fd.ints_to_tensor([5, 0], dev), table, w)
+
+
+def test_crs_two_launches(dev):
+    """A CRS of 2^16 + 1 points (w = 8): two kernel J launches, the same
+    rows as the twin's and the host's."""
+    from quill_tpu_torch.ec import fixed_base as fb
+    from quill_tpu_torch.pcs.kzg import _tau_from_seed
+
+    n, tau = (1 << 16) + 1, _tau_from_seed(0)
+    assert fb.window_for(n) == 8
+    before = build.LAUNCHES["fixed_base"]
+    xy = fb.device_tau_powers(tau, n, dev)
+    assert build.LAUNCHES["fixed_base"] == before + 2
+    powers = fd.from_mont(fd.powers(tau, n, fd.FR, dev), fd.FR)
+    assert torch.equal(xy, fb.fixed_base_twin(powers, fb.make_table(8, dev),
+                                              8))
+    g = curve.g1_generator()
+    for i in (0, 1, n - 1):
+        a = g.scalar_mul(pow(tau, i, R)).to_affine()
+        assert fd.to_ints(xy[i], fd.FQ) == [a.x.v, a.y.v]
 
 
 def test_kernel_k_matches_plain(dev):
@@ -575,6 +610,53 @@ def test_kernel_k_matches_plain(dev):
     assert torch.equal(msm6.level0(sh, idx), msm6.level0_plain(sh, idx))
     assert build.LAUNCHES["msm6_level0"] == before + 1
     assert msm6.msm(basis, s) == M.msm(basis, s) == curve.msm_host(pts, ints)
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+@pytest.mark.parametrize("n", [1, 20, 21, 300, 5000])
+def test_kernel_e_add_by_threads_and_lanes(dev, n, lanes):
+    """Kernel E's add, by threads and by lanes, staged: the plain twin's
+    triples, with and without flags."""
+    from quill_tpu_torch.ec import msm5
+
+    a, b = _proj_points(n, dev, n), _proj_points(n, dev, n + 1)
+    flags = torch.rand(n, device=dev) < 0.3
+    for f in (None, flags):
+        assert torch.equal(msm5.pt_add(a, b, f, lanes=lanes),
+                           msm5.pt_add_plain(a, b, f))
+
+
+def test_v6_walk_and_top_match_chains(dev):
+    """v6's query walk (by threads and by lanes) against the chain of
+    flagged kernel E launches with `torch.equal`, the fused top against
+    Hillis-Steele as points; a v6 MSM launches one walk and one top and
+    no E add."""
+    from quill_tpu_torch.ec import msm5, msm6
+
+    g = curve.g1_generator()
+    pts = [g.scalar_mul(k + 2).to_affine() for k in range(300)]
+    basis = M.load_basis(pts, dev)
+    ints = [RNG.randrange(R) for _ in range(300)]
+    ints[:3] = [0, 1, R - 1]
+    s = fd.from_ints(ints, fd.FR, dev)
+    sh = msm6.shifted(basis, 300)
+    keys, idx = msm6.sort_keys(fd.from_mont(s, fd.FR), basis.inf,
+                               sh.shape[1])
+    cnt = torch.searchsorted(keys, torch.arange(
+        msm6.NQ, dtype=torch.int32, device=dev), right=True)
+    flat = sh.reshape(-1, 2, fd.NLIMB)
+    levels = msm6.tree(flat, idx)
+    top = msm6.top_prefix(levels[-1])
+    assert bool(ed.points_equal(top, msm6.prefix(levels[-1])).all())
+    want = msm6.queries(cnt, flat, idx, levels, top)
+    for lanes in (False, True):
+        assert torch.equal(msm6.query_walk(cnt, flat, idx, levels, top,
+                                           lanes), want)
+    before = dict(build.LAUNCHES)
+    assert msm6.msm(basis, s) == curve.msm_host(pts, ints)
+    grew = {k: v - before[k] for k, v in build.LAUNCHES.items()}
+    assert grew["msm5_query_walk"] == 1 and grew["msm5_tree_top"] == 1
+    assert grew["msm5_pt_add"] == 0
 
 
 @pytest.mark.parametrize("field", ["fr", "fq"])
