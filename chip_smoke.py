@@ -34,14 +34,14 @@ Phases, any failure exits non-zero:
    2^16-point chunk at 20 windows of 13 bits and at 16 of 16, of two
    chunks in one launch at (20, 13) and of 2^18 points at (16, 16), and
    its doubling at v8's triangle; kernel E's add by threads at 2^16 and
-   by lanes at v8's triangle's 20 points; kernels G and H one and two levels a
-   launch on one small-route batch's 2,621,440 leaf pairs, the fused top at
-   the batch's top level and its reduce mode on the collect's and v6's
-   reductions, each with `torch.equal`, and the whole prefix tree against
-   the chain of one-level launches, both timed; kernel E's v8 collect mode
-   on one v8 chunk; kernel E's walk mode, v6's bucket queries, by threads
-   and by lanes against the chain of flagged launches, and the fused top as
-   v6's prefix, at a 2^18-point v6 MSM's shapes; kernel J's table, one
+   by lanes at v8's triangle's 20 points; kernels G and H one and two
+   levels a launch on one small-route batch's 2,621,440 leaf pairs, the
+   fused top at the batch's top level and its reduce mode on the
+   collect's and v6's reductions, each with `torch.equal`, and the whole
+   prefix tree against the chain of one-level launches, both timed;
+   kernel E's v8 collect mode on one v8 chunk; kernel E's walk mode, v6's
+   bucket queries, against the chain of flagged launches, and the fused
+   top as v6's prefix, at a 2^18-point v6 MSM's shapes; kernel J's table, one
    2^16-point chunk and the 2^18 + 1-point CRS against its twin); the
    2^18-point MSMs also against the native host MSM;
    the small-route MSM of 4 x 2^16 points (its launches logged), v6 MSMs
@@ -1042,8 +1042,8 @@ def v6_kernels(kzg, kzg_big, card):
 
 def v6_walk(keys, flat, idx, card):
     """Kernel E's walk mode at a v6 MSM's real shapes (its 2^16 - 1 bucket
-    counts over its tree), by threads and by lanes, against the chain of
-    flagged kernel E launches and the plain chain with `torch.equal`; the
+    counts over its tree) against the chain of flagged kernel E launches
+    and the plain chain with `torch.equal`; the
     fused top as the prefix of the tree's top level against Hillis-Steele
     (kernel E launches) as points.  The bound counts this data's adds: one
     a set bit of a count below the top's level.  -> the walk's record,
@@ -1051,14 +1051,14 @@ def v6_walk(keys, flat, idx, card):
     import torch
 
     from quill_tpu_torch.ec import device as ed
-    from quill_tpu_torch.ec import msm6
+    from quill_tpu_torch.ec import msm5, msm6
 
     dev = keys.device
     cnt = torch.searchsorted(keys, torch.arange(
         msm6.NQ, dtype=torch.int32, device=dev), right=True)
     levels = msm6.tree(flat, idx)
     kmin, w = len(levels), levels[-1].shape[0]
-    top = msm6.top_prefix(levels[-1])
+    top = msm5.tree_top(levels[-1])
     hs = msm6.prefix(levels[-1])
     check(bool(ed.points_equal(top, hs).all()),
           "the fused top's prefixes are not v6's prefix sums")
@@ -1066,29 +1066,22 @@ def v6_walk(keys, flat, idx, card):
     check(torch.equal(want, msm6.queries(cnt, flat, idx, levels, top,
                                          plain=True)),
           "the chain of kernel E launches disagrees with the plain chain")
-    for lanes, how in ((False, "threads"), (True, "lanes")):
-        check(torch.equal(msm6.query_walk(cnt, flat, idx, levels, top, lanes),
-                          want), f"v6's query walk ({how}) disagrees with "
-              f"the chain")
+    check(torch.equal(msm6.query_walk(cnt, flat, idx, levels, top), want),
+          "v6's query walk disagrees with the chain")
     low = cnt & ((1 << kmin) - 1)
     adds = sum(int(((low >> k) & 1).sum()) for k in range(kmin))
     times = dict(
         ms=cuda_ms(lambda: msm6.query_walk(cnt, flat, idx, levels, top),
                    reps=10),
-        threads_ms=cuda_ms(lambda: msm6.query_walk(cnt, flat, idx, levels,
-                                                   top, False), reps=10),
-        lanes_ms=cuda_ms(lambda: msm6.query_walk(cnt, flat, idx, levels,
-                                                 top, True), reps=10),
         chain_ms=cuda_ms(lambda: msm6.queries(cnt, flat, idx, levels, top)),
         plain_ms=cuda_ms(lambda: msm6.queries(cnt, flat, idx, levels, top,
                                               plain=True), reps=1),
         top_shape=f"the tree's top level, {w} points: its prefix sums",
-        top_ms=cuda_ms(lambda: msm6.top_prefix(levels[-1]), reps=10),
+        top_ms=cuda_ms(lambda: msm5.tree_top(levels[-1]), reps=10),
         top_chain_ms=cuda_ms(lambda: msm6.prefix(levels[-1])),
         top_bound_ms=bound(card, 12 * top_adds(w), 2 * w * PT)["bound_ms"])
     log(f"v6's query walk, {msm6.NQ} buckets over {kmin} levels ({adds} "
-        f"adds): {times['ms']:.3f} ms (threads {times['threads_ms']:.3f}, "
-        f"lanes {times['lanes_ms']:.3f}) vs the chain of kernel E launches "
+        f"adds): {times['ms']:.3f} ms vs the chain of kernel E launches "
         f"{times['chain_ms']:.3f} ms, plain {times['plain_ms']:.3f} ms; the "
         f"top's prefix at {w} points {times['top_ms']:.3f} ms vs "
         f"Hillis-Steele {times['top_chain_ms']:.3f} ms")
@@ -1101,8 +1094,7 @@ def v6_walk(keys, flat, idx, card):
                  "as quill_tpu/fields/pallas8.py:475 "
                  "(_stacked_combine_kernel, flagged) a level",
         shape=f"{msm6.NQ} bucket queries of a v6 MSM of {V6_POINTS[0]} "
-              f"points: {kmin} levels, {adds} adds, by "
-              f"{'lanes' if msm6.WALK_LANES else 'threads'}",
+              f"points: {kmin} levels, {adds} adds, one bucket a thread",
         max_abs_err=0, **times,
         **bound(card, 12 * adds, msm6.NQ * (8 + PT) + adds * PT),
         library_ms=None)

@@ -634,37 +634,16 @@ void q_fb_digits(const uint32_t* s, int w, int* out) {
   for (int k = 0; k < fb_windows(w); ++k) out[k] = fb_digit(s, w, k, &carry);
 }
 
-// Kernel E's walk mode (csrc/msm5.cu: query_walk_kernel) emulated: by
-// threads walk_query itself; by lanes the same steps with g1_add_split
-// (the six lanes' steps in turn), identities added where a bit is clear,
-// as the lanes do.  cnt: (nq,) int64; levels: kmin - 1 host pointers.
+// Kernel E's walk mode (csrc/msm5.cu: query_walk_kernel) emulated: walk_query
+// for each bucket.  cnt: (nq,) int64; levels: kmin - 1 host pointers.
 void q_query_walk(const long long* cnt, long nq, const uint32_t* top,
                   const unsigned long long* levels, int kmin,
-                  const uint32_t* sh, const int* idx, int lanes,
-                  uint32_t* out) {
+                  const uint32_t* sh, const int* idx, uint32_t* out) {
   WalkLevels lv;
   for (int k = 0; k < WALK_MAX; ++k)
     lv.p[k] = k < kmin - 1 ? (const uint32_t*)levels[k] : nullptr;
-  for (long i = 0; i < nq; ++i) {
-    if (!lanes) {
-      g1_store(out + PT_WORDS * i, walk_query(cnt[i], kmin, top, lv, sh, idx));
-      continue;
-    }
-    const long long c = cnt[i];
-    G1P acc = walk_start(c, kmin, top);
-    long long off = (c >> kmin) << kmin;
-    for (int k = kmin - 1; k >= 0; --k) {
-      G1P node = g1_identity(), other = node;
-      const bool has = walk_node(c, k, off, lv, sh, idx, &node);
-      if (has) other = acc;
-      const G1P r = g1_add_split(node, other);
-      if (has) {
-        acc = r;
-        off += 1LL << k;
-      }
-    }
-    g1_store(out + PT_WORDS * i, acc);
-  }
+  for (long i = 0; i < nq; ++i)
+    g1_store(out + PT_WORDS * i, walk_query(cnt[i], kmin, top, lv, sh, idx));
 }
 
 // Kernel E's add (pt_add_kernel) emulated block by block: tree.cuh's

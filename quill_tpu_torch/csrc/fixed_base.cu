@@ -28,7 +28,9 @@ using namespace bn254;
 
 #define FB_MINB 4
 // the rule halves the points a thread while a launch would give an SM fewer
-// than FB_FILL blocks (measured on an H100: PERF.md, PR 11)
+// than FB_FILL blocks: on an H100 (PERF.md, PR 11) a 2^16-point launch
+// took 1.00 / 1.04 / 1.09 ms at 1 / 2 / 4 points a thread, the 2^18 +
+// 1-point CRS 4.98 / 4.16 / 3.95
 #define FB_FILL 2
 
 __global__ void __launch_bounds__(FB_NT, FB_MINB)
@@ -66,14 +68,12 @@ fixed_base_kernel(const uint32_t* __restrict__ scalars, long long n,
 }
 
 // scalars: (n, 8) canonical; table: (fb_windows(w) 2^(w-1), 16) affine;
-// out: (n, 16) affine; flag: one int, left alone or set to 1; ppt: points a
-// thread, 1 to FB_PPT, or 0 for the rule (fb_ppt)
+// out: (n, 16) affine; flag: one int, left alone or set to 1
 extern "C" int quill_fixed_base(const void* scalars, long long n,
-                                const void* table, int w, int ppt, void* out,
+                                const void* table, int w, void* out,
                                 void* flag, void* stream) {
   if (n <= 0) return 0;
-  if (w < 1 || w > FB_WMAX || ppt < 0 || ppt > FB_PPT)
-    return (int)cudaErrorInvalidValue;
+  if (w < 1 || w > FB_WMAX) return (int)cudaErrorInvalidValue;
   const int bytes = 4 * fb_words();
   static int set = (int)cudaFuncSetAttribute(
       fixed_base_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -84,7 +84,7 @@ extern "C" int quill_fixed_base(const void* scalars, long long n,
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  if (ppt == 0) ppt = fb_ppt(n, sms > 0 ? sms : 1, FB_FILL);
+  const int ppt = fb_ppt(n, sms > 0 ? sms : 1, FB_FILL);
   fixed_base_kernel<<<(unsigned)fb_blocks(n, ppt), FB_NT, bytes,
                       (cudaStream_t)stream>>>(
       (const uint32_t*)scalars, n, (const uint32_t*)table, w, fb_windows(w),

@@ -100,41 +100,17 @@ pt_add_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
     add_store(flags, n, r0, S, i, sh, out);
 }
 
-// E's walk mode, v6's bucket queries: one bucket a thread, or one a group
-// of six lanes (five groups a warp; csrc/query.cuh has the walk)
-template <bool LANES>
+// E's walk mode, v6's bucket queries: one bucket a thread (csrc/query.cuh
+// has the walk); one a group of six lanes took 1.6x the time on an H100
+// (PERF.md, PR 11)
 __global__ void __launch_bounds__(MSM5_BLOCK)
 query_walk_kernel(const long long* __restrict__ cnt, long long nq,
                   const uint32_t* __restrict__ top, WalkLevels lv, int kmin,
                   const uint32_t* __restrict__ sh, const int* __restrict__ idx,
                   uint32_t* __restrict__ out) {
-  if (!LANES) {
-    const long long i = (long long)blockIdx.x * MSM5_BLOCK + threadIdx.x;
-    if (i < nq) pt_st(out + PT_WORDS * i,
-                      walk_query(cnt[i], kmin, top, lv, sh, idx));
-    return;
-  }
-  __shared__ uint4 walk_sh[MSM5_BLOCK / 32 * 6 * 48 / 4];
-  const int lane = threadIdx.x & 31, gw = lane / 6, g = lane % 6;
-  const int warp = threadIdx.x >> 5;
-  const long long q = (long long)blockIdx.x * TREE_LANE_GROUPS + warp * 5 + gw;
-  const bool on = gw < 5 && q < nq;
-  uint32_t* xs = reinterpret_cast<uint32_t*>(walk_sh) + 48 * (warp * 6 + gw);
-  const long long c = on ? cnt[q] : 0;
-  G1P acc = walk_start(c, kmin, top);
-  long long off = (c >> kmin) << kmin;
-#pragma unroll 1
-  for (int k = kmin - 1; k >= 0; --k) {
-    G1P node = g1_identity(), other = node;
-    const bool has = walk_node(c, k, off, lv, sh, idx, &node);
-    if (has) other = acc;
-    const G1P r = g1_add_lanes(node, other, g, xs);
-    if (has) {
-      acc = r;
-      off += 1LL << k;
-    }
-  }
-  if (on && g == 0) pt_st(out + PT_WORDS * q, acc);
+  const long long i = (long long)blockIdx.x * MSM5_BLOCK + threadIdx.x;
+  if (i < nq)
+    pt_st(out + PT_WORDS * i, walk_query(cnt[i], kmin, top, lv, sh, idx));
 }
 
 __global__ void __launch_bounds__(MSM5_BLOCK)
@@ -366,23 +342,16 @@ extern "C" int quill_pt_add(const void* a, const void* b, const void* flags,
 // shifted basis; idx: the sorted leaves' rows of sh; out: (nq, 24)
 extern "C" int quill_query_walk(const void* cnt, long long nq, const void* top,
                                 const unsigned long long* levels, int kmin,
-                                const void* sh, const void* idx, int lanes,
-                                void* out, void* stream) {
+                                const void* sh, const void* idx, void* out,
+                                void* stream) {
   if (nq <= 0) return 0;
   if (kmin < 1 || kmin - 1 > WALK_MAX) return (int)cudaErrorInvalidValue;
   WalkLevels lv;
   for (int k = 0; k < WALK_MAX; ++k)
     lv.p[k] = k < kmin - 1 ? (const uint32_t*)levels[k] : nullptr;
-  const long long per = lanes ? TREE_LANE_GROUPS : MSM5_BLOCK;
-  const unsigned grid = (unsigned)((nq + per - 1) / per);
-  if (lanes)
-    query_walk_kernel<true><<<grid, MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const long long*)cnt, nq, (const uint32_t*)top, lv, kmin,
-        (const uint32_t*)sh, (const int*)idx, (uint32_t*)out);
-  else
-    query_walk_kernel<false><<<grid, MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const long long*)cnt, nq, (const uint32_t*)top, lv, kmin,
-        (const uint32_t*)sh, (const int*)idx, (uint32_t*)out);
+  query_walk_kernel<<<blocks(nq), MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const long long*)cnt, nq, (const uint32_t*)top, lv, kmin,
+      (const uint32_t*)sh, (const int*)idx, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

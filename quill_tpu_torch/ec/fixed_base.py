@@ -43,7 +43,7 @@ def _fn():
     if not _FN:
         _FN["j"] = build.bind(build.lib("fixed_base"), "quill_fixed_base",
                               [build.VP, build.I64, build.VP, build.I32,
-                               build.I32, build.VP, build.VP, build.VP])
+                               build.VP, build.VP, build.VP])
     return _FN["j"]
 
 
@@ -135,13 +135,11 @@ def _check(scalars, table, w):
 
 
 def fixed_base(scalars: torch.Tensor, table: torch.Tensor, w: int,
-               flag=None, ppt: int = 0) -> torch.Tensor:
+               flag=None) -> torch.Tensor:
     """Kernel J: (n, 8) canonical scalars, none 0 mod r, and a table of
     signed w-bit windows -> (n, 2, 8) affine rows s_i G.  A point at
     infinity sets `flag` (a (1,) int32 tensor on the card) and raises
-    ValueError: at once without `flag`, else where the caller reads it.
-    `ppt` (points a thread, 1, 2 or 4) overrides the launch's rule, for
-    the probe's sweep."""
+    ValueError: at once without `flag`, else where the caller reads it."""
     _check(scalars, table, w)
     if not scalars.is_cuda:
         return fixed_base_twin(scalars, table, w)
@@ -156,8 +154,8 @@ def fixed_base(scalars: torch.Tensor, table: torch.Tensor, w: int,
     n = scalars.shape[0]
     out = torch.empty((n, 2, fd.NLIMB), dtype=torch.int32,
                       device=scalars.device)
-    rc = _fn()(scalars.data_ptr(), n, table.data_ptr(), w, ppt,
-               out.data_ptr(), flag.data_ptr(), build.stream_ptr())
+    rc = _fn()(scalars.data_ptr(), n, table.data_ptr(), w, out.data_ptr(),
+               flag.data_ptr(), build.stream_ptr())
     build.check(rc, "fixed_base")
     build.count("fixed_base")
     if own:

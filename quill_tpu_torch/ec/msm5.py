@@ -80,8 +80,8 @@ def _fns():
         _FN["add"] = build.bind(lib, "quill_pt_add",
                                 [vp, vp, vp, i64, build.I32, vp, vp])
         _FN["walk"] = build.bind(lib, "quill_query_walk",
-                                 [vp, i64, vp, vp, build.I32, vp, vp,
-                                  build.I32, vp, vp])
+                                 [vp, i64, vp, vp, build.I32, vp, vp, vp,
+                                  vp])
         _FN["dbl"] = build.bind(lib, "quill_pt_dbl",
                                 [vp, i64, build.I32, vp, vp])
         _FN["shifted"] = build.bind(

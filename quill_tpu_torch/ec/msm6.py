@@ -71,9 +71,6 @@ NQ = NBUCK - 1             # bucket queries, b = 0 .. 2^16 - 2
 # which takes its prefixes in one launch; the JAX package's `_MIN_H` is
 # 1024, one level less (the same points)
 MIN_TOP = msm5.TOP
-# v6's query walk gives a bucket to a group of six lanes (else to a
-# thread), by measurement on an H100 (PERF.md, PR 11)
-WALK_LANES = False
 CHUNK = msm5.CHUNK         # the shifted basis grows by whole chunks
 CACHE_KEY = "v6"           # of the shifted basis in TorchBasis.shifted
 
@@ -189,7 +186,8 @@ def tree(sh, idx) -> list:
 
 def prefix(x):
     """Inclusive prefix sums of (h, 3, 8) points: Hillis-Steele, one kernel
-    E launch a step.  The plain reference of `top_prefix` (other triples,
+    E launch a step.  The plain reference of the fused top's tree mode,
+    which `msm` takes for the top level (`msm5.tree_top`; other triples,
     the same points); nothing on a card path calls it."""
     step = 1
     while step < x.shape[0]:
@@ -198,18 +196,17 @@ def prefix(x):
     return x
 
 
-def top_prefix(x):
-    """The inclusive prefix sums of the top level (h <= MIN_TOP points): the
-    fused top's tree mode, one launch (`msm5.tree_top`)."""
-    return msm5.tree_top(x.contiguous())
-
-
-def add_where(node, acc, has, plain=False):
-    """has ? node + acc : acc, kernel E's flagged mode (flags = ~has).  On
-    the CPU, or `plain`, only the rows where `has` is set are added, by
-    the plain twin."""
-    if acc.is_cuda and not plain:
+def add_where(node, acc, has):
+    """has ? node + acc : acc, kernel E's flagged mode (flags = ~has); on
+    the CPU `add_where_plain`."""
+    if acc.is_cuda:
         return msm5.pt_add(node.contiguous(), acc, ~has)
+    return add_where_plain(node, acc, has)
+
+
+def add_where_plain(node, acc, has):
+    """`add_where` by the plain twin, adding only the rows where `has` is
+    set."""
     out = acc.clone()
     sel = torch.nonzero(has).flatten()
     out[sel] = msm5.pt_add_plain(node[sel], acc[sel])
@@ -237,15 +234,15 @@ def queries(cnt, sh, idx, levels, top, plain=False):
             leaf = sh[idx[offset.clamp(max=idx.shape[0] - 1)].to(torch.int64)]
             one = fd.const(1, FQ, dev).expand(cnt.shape[0], 1, fd.NLIMB)
             node = torch.cat((leaf, one), 1)
-        acc = add_where(node, acc, has, plain)
+        acc = (add_where_plain if plain else add_where)(node, acc, has)
         offset = offset + (has.to(offset.dtype) << k)
     return acc
 
 
-def query_walk(cnt, sh, idx, levels, top, lanes=None):
+def query_walk(cnt, sh, idx, levels, top):
     """Kernel E's walk mode: `queries` in one launch (`csrc/query.cuh`), a
-    bucket to a thread, or to a group of six lanes (`lanes`, default
-    WALK_LANES).  cnt: (nq,) int64 counts, each at most idx's length."""
+    bucket to a thread.  cnt: (nq,) int64 counts, each at most idx's
+    length."""
     if not cnt.is_cuda:
         return queries(cnt, sh, idx, levels, top)
     kmin = len(levels)
@@ -263,10 +260,9 @@ def query_walk(cnt, sh, idx, levels, top, lanes=None):
         *[lv.data_ptr() for lv in levels[:-1]])
     nq = cnt.shape[0]
     out = msm5._out(nq, top)
-    lanes = WALK_LANES if lanes is None else lanes
     rc = msm5._fns()["walk"](cnt.data_ptr(), nq, top.data_ptr(), ptrs, kmin,
-                             sh.data_ptr(), idx.data_ptr(), int(lanes),
-                             out.data_ptr(), build.stream_ptr())
+                             sh.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                             build.stream_ptr())
     build.check(rc, "msm5_query_walk")
     build.count("msm5_query_walk")
     return out
@@ -292,7 +288,7 @@ def msm(basis: TorchBasis, scalars: torch.Tensor) -> curve.Jacobian:
     del keys
     flat = sh.reshape(-1, 2, fd.NLIMB)
     levels = tree(flat, idx)
-    top = top_prefix(levels[-1])
+    top = msm5.tree_top(levels[-1])
     acc = query_walk(cnt, flat, idx, levels, top)
     del levels
     s_sum = reduce_sum(torch.cat((acc, ed.identity(1, dev)), 0))

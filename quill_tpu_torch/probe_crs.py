@@ -23,15 +23,14 @@ trees in turn.
    `to_affine` of its output);
 4. `walk`: a v6 MSM of 2^18 uniform scalars (the 2^16-row prove's
    largest): the top's prefix sums and the bucket queries, by the walk
-   (threads and lanes) or the chain, and the whole MSM, with its launches
+   or the chain, and the whole MSM, with its launches
    by kernel;
 5. `add`: kernel E's add at 2^16 to 2^8 points and at 20 (v8's
    triangle), flagged and not, by threads and by lanes where the API has
    them;
 6. with `--sweep` (this API only), kernel J's table at every w of
    `fixed_base.W_RANGE` and the CRS launch over it at 2^18 + 1 and 2^22 +
-   1 points; then J at 1, 2 and 4 points a thread on a 2^16-point chunk,
-   both CRSs and their tables.
+   1 points.
 Times are means of 3 after a warm-up.  The last line is one JSON object
 with the card's name and power limit.
 """
@@ -161,7 +160,7 @@ def chunk(dev) -> dict:
 
 
 def walk(dev) -> dict:
-    from quill_tpu_torch.ec import msm6
+    from quill_tpu_torch.ec import msm5, msm6
     from quill_tpu_torch.ec.msm import TorchBasis
     from quill_tpu_torch.fields import device as fd
     from quill_tpu_torch.ec.fixed_base import device_tau_powers
@@ -194,16 +193,12 @@ def walk(dev) -> dict:
     res["chain_launches"] = _launches(
         lambda: msm6.queries(cnt, flat, idx, levels, top))
     if hasattr(msm6, "query_walk"):
-        res["top_ms"] = _events(lambda: msm6.top_prefix(levels[-1]))
-        want = msm6.queries(cnt, flat, idx, levels, top)
-        for lanes in (False, True):
-            tag = "walk_lanes" if lanes else "walk"
-            got = msm6.query_walk(cnt, flat, idx, levels, top, lanes)
-            if not torch.equal(got, want):
-                raise SystemExit(f"probe_crs: the {tag} differs from the "
-                                 f"chain")
-            res[f"{tag}_ms"] = _events(lambda: msm6.query_walk(
-                cnt, flat, idx, levels, top, lanes), 10)
+        res["top_ms"] = _events(lambda: msm5.tree_top(levels[-1]))
+        if not torch.equal(msm6.query_walk(cnt, flat, idx, levels, top),
+                           msm6.queries(cnt, flat, idx, levels, top)):
+            raise SystemExit("probe_crs: the walk differs from the chain")
+        res["walk_ms"] = _events(lambda: msm6.query_walk(
+            cnt, flat, idx, levels, top), 10)
     res["msm_ms"] = _wall(lambda: msm6.msm(basis, s))
     res["msm_launches"] = _launches(lambda: msm6.msm(basis, s))
     return res
@@ -258,22 +253,6 @@ def sweep(dev) -> dict:
         print(f"sweep w={w}: {json.dumps(row)}", flush=True)
         del table
         torch.cuda.empty_cache()
-    # points a thread, at the shapes the rule decides between: a 2^16-point
-    # chunk and the two CRSs at their widths, and the tables of those
-    scal[1 << 16] = _powers(1 << 16, dev)
-    for n, w in ((1 << 16, 15), (CRS_SIZES[0], 10), (CRS_SIZES[1], 15)):
-        table = fb.make_table(w, dev)
-        ts = fb.table_scalars(w, dev).reshape(-1, 8)
-        boot = fb.boot_table(dev)
-        row = {}
-        for ppt in (1, 2, 4):
-            row[f"ppt{ppt}_ms"] = _events(
-                lambda: fb.fixed_base(scal[n], table, w, ppt=ppt))
-            row[f"table_ppt{ppt}_ms"] = _events(
-                lambda: fb.fixed_base(ts, boot, fb.BOOT_W, ppt=ppt))
-        res[f"ppt_{n}"] = row
-        print(f"sweep ppt at {n} points (w = {w}): {json.dumps(row)}",
-              flush=True)
     return res
 
 

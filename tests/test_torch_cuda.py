@@ -627,8 +627,8 @@ def test_kernel_e_add_by_threads_and_lanes(dev, n, lanes):
 
 
 def test_v6_walk_and_top_match_chains(dev):
-    """v6's query walk (by threads and by lanes) against the chain of
-    flagged kernel E launches with `torch.equal`, the fused top against
+    """v6's query walk against the chain of flagged kernel E launches
+    with `torch.equal`, the fused top against
     Hillis-Steele as points; a v6 MSM launches one walk and one top and
     no E add."""
     from quill_tpu_torch.ec import msm5, msm6
@@ -646,12 +646,10 @@ def test_v6_walk_and_top_match_chains(dev):
         msm6.NQ, dtype=torch.int32, device=dev), right=True)
     flat = sh.reshape(-1, 2, fd.NLIMB)
     levels = msm6.tree(flat, idx)
-    top = msm6.top_prefix(levels[-1])
+    top = msm5.tree_top(levels[-1])
     assert bool(ed.points_equal(top, msm6.prefix(levels[-1])).all())
-    want = msm6.queries(cnt, flat, idx, levels, top)
-    for lanes in (False, True):
-        assert torch.equal(msm6.query_walk(cnt, flat, idx, levels, top,
-                                           lanes), want)
+    assert torch.equal(msm6.query_walk(cnt, flat, idx, levels, top),
+                       msm6.queries(cnt, flat, idx, levels, top))
     before = dict(build.LAUNCHES)
     assert msm6.msm(basis, s) == curve.msm_host(pts, ints)
     grew = {k: v - before[k] for k, v in build.LAUNCHES.items()}

@@ -3,7 +3,7 @@ the CPU: `csrc/query.cuh` and tree.cuh's staging maps run by their host
 emulation (`csrc/bn254_host.cpp`: `q_query_walk`, `q_pt_add_blocked`,
 `q_tree_top`, built with g++) against the plain chains they replace.
 
-- the walk, by threads and by lanes, against `msm6.queries` (one flagged
+- the walk against `msm6.queries` (one flagged
   add a level, plain twins on the CPU) with `torch.equal`: the walk adds
   node + acc level by level as the chain does, so the triples are the
   chain's.  A small v6 tree (MIN_TOP cut to a few nodes, so that it keeps
@@ -43,7 +43,7 @@ def lib():
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     lib = ctypes.CDLL(str(build.build_host()))
-    lib.q_query_walk.argtypes = [VP, LONG, VP, VP, INT, VP, VP, INT, VP]
+    lib.q_query_walk.argtypes = [VP, LONG, VP, VP, INT, VP, VP, VP]
     lib.q_query_walk.restype = None
     lib.q_pt_add_blocked.argtypes = [VP, VP, VP, LONG, INT, VP]
     lib.q_pt_add_blocked.restype = None
@@ -92,13 +92,13 @@ def v6_tree():
     return sh, idx, levels, msm6.prefix(levels[-1]), fl
 
 
-def _walk(lib, cnt, tree, lanes):
+def _walk(lib, cnt, tree):
     sh, idx, levels, top, _ = tree
     ptrs = (ctypes.c_uint64 * len(levels))(
         *[lv.data_ptr() for lv in levels[:-1]])
     out = torch.zeros((cnt.shape[0], 3, fd.NLIMB), dtype=torch.int32)
     lib.q_query_walk(cnt.data_ptr(), cnt.shape[0], top.data_ptr(), ptrs,
-                     len(levels), sh.data_ptr(), idx.data_ptr(), int(lanes),
+                     len(levels), sh.data_ptr(), idx.data_ptr(),
                      out.data_ptr())
     return out
 
@@ -114,12 +114,11 @@ def _counts(fl, seed):
                         dtype=torch.int64)
 
 
-@pytest.mark.parametrize("lanes", [False, True])
-def test_walk_matches_chain(lib, v6_tree, lanes):
+def test_walk_matches_chain(lib, v6_tree):
     cnt = _counts(v6_tree[4], 68)
     sh, idx, levels, top, _ = v6_tree
     want = msm6.queries(cnt, sh, idx, levels, top)
-    assert torch.equal(_walk(lib, cnt, v6_tree, lanes), want)
+    assert torch.equal(_walk(lib, cnt, v6_tree), want)
     assert torch.equal(msm6.query_walk(cnt, sh, idx, levels, top), want)
 
 
@@ -131,8 +130,7 @@ def test_walk_one_level(lib, v6_tree):
     tree = (sh, idx, levels[:1], top, fl)
     cnt = _counts(fl, 69)
     want = msm6.queries(cnt, sh, idx, levels[:1], top)
-    for lanes in (False, True):
-        assert torch.equal(_walk(lib, cnt, tree, lanes), want)
+    assert torch.equal(_walk(lib, cnt, tree), want)
 
 
 @pytest.mark.parametrize("w", [1, 2, 5, 64, 512])
@@ -144,7 +142,7 @@ def test_top_as_prefix(lib, w):
     assert lib.q_tree_top(x.data_ptr(), w, 1, 1, out.data_ptr()) == 0
     want = msm6.prefix(x)
     assert bool(ed.points_equal(out, want).all())
-    assert bool(ed.points_equal(msm6.top_prefix(x), want).all())
+    assert bool(ed.points_equal(msm5.tree_top(x), want).all())
     total = msm5.tree_reduce_plain(torch.cat(
         (x, ed.identity((1 << max(w - 1, 0).bit_length()) - w, "cpu"))),
         1 << max(w - 1, 0).bit_length())
