@@ -34,7 +34,11 @@ Phases, any failure exits non-zero:
    2^16-point chunk at 20 windows of 13 bits and at 16 of 16, of two
    chunks in one launch at (20, 13) and of 2^18 points at (16, 16), and
    its doubling at v8's triangle; kernel E's add by threads at 2^16 and
-   by lanes at v8's triangle's 20 points; kernels G and H one and two
+   by lanes at v8's triangle's 20 points; the leaf-level kernel (F on the
+   small route, K on v6) through the sort's index at one small-route
+   batch's 2,621,440 leaf pairs and at a 2^18-point v6 MSM's 2^21 (exact
+   triples; the small route's sort must give an index, not leaves);
+   kernels G and H one and two
    levels a launch on one small-route batch's 2,621,440 leaf pairs, the
    fused top at the batch's top level and its reduce mode on the
    collect's and v6's reductions, each with `torch.equal`, and the whole
@@ -65,7 +69,8 @@ every kernel must have launched in the CRS build, the field bench or one
 of the paths, kernel M on the 2^16- and the 2^20-row paths, and the v8
 collect on the 2^20-row path.  The 2^16-row path's shifted basis is
 kernel E's one launch a call (no E add on that path), the v6 path one
-query walk a v6 MSM and no E add, and v8's triangle one doubling launch
+query walk and one leaf-level launch (K) a v6 MSM and no E add, and v8's
+triangle one doubling launch
 and 3 adds a MSM.  The line before the last is the
 per-kernel JSON record, the last line the device record.
 """
@@ -471,24 +476,25 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
     vecs[0][:4] = [0, 1, R - 1, (1 << 13) - 1]
     s_list = [fd.from_ints(v, fd.FR, dev) for v in vecs]
     scs = torch.stack([fd.from_mont(t, fd.FR) for t in s_list])
-    keys, perm, leaves = msm5.sort_leaves(scs, inf0, sh)
-    check(leaves.shape[0] == 4 * msm5.NWIN * n,
-          "the small route's batch is not 4 x 20 x n leaves")
-    x1 = msm5.tree_up0(leaves)
-    err_f = points_err(x1, msm5.tree_up0_plain(leaves))
-    check(err_f == 0, "kernel F disagrees with its plain twin")
-    tree_recs, tree_times = tree_kernels(leaves, x1, card)
-    k1 = x1.shape[0]
-    t_k, t_p = (cuda_ms(lambda: msm5.tree_up0(leaves)),
-                cuda_ms(lambda: msm5.tree_up0_plain(leaves), reps=1))
-    shape = f"{k1} affine leaf pairs (4 MSMs x 20 windows x {n} points)"
-    log(f"kernel msm5_tree_up0: {shape}: {t_k:.3f} ms vs plain {t_p:.3f} ms")
-    record("msm5_tree_up0", "quill_tpu_torch/csrc/msm5.cu",
-           "quill_tpu/ec/msm5.py:245 (_up0_kernel)", 9 * k1,
-           2 * k1 * AFF + k1 * PT, shape=shape, max_abs_err=err_f, ms=t_k,
-           plain_ms=t_p)
+    # the sort gives the leaves' rows of the shifted basis, no leaf tensor:
+    # kernel F gathers the rows itself
+    out = msm5.sort_leaves(scs, inf0)
+    check(len(out) == 2, "the small route's sort gives more than its keys "
+          "and index")
+    keys, idx = out
+    check(idx.dtype == torch.int32 and idx.shape == (4 * msm5.NWIN * n,),
+          "the small route's index is not 4 x 20 x n int32 rows")
+    x1 = msm5.tree_up0(sh, idx)
+    check(torch.equal(x1, msm5.tree_up0_plain(sh, idx)),
+          "kernel F disagrees with its plain twin")
+    tree_recs, tree_times = tree_kernels(sh, idx, x1, card)
+    records.append(leaf_record(
+        "msm5_tree_up0", "quill_tpu/ec/msm5.py:245 (_up0_kernel)", sh, idx,
+        msm5.tree_up0, msm5.tree_up0_plain,
+        f"{x1.shape[0]} affine leaf pairs gathered through the sort's index "
+        f"(4 MSMs x 20 windows x {n} points)", card))
     records.extend(tree_recs)
-    del leaves, x1
+    del x1, keys, idx
 
     # the whole small-route MSM against kernels C and D, same 4 vectors
     bs_own = M.slice_basis(own, n)
@@ -506,10 +512,20 @@ def kernel_phase(engine, kzg, kzg_big, rng, card):
         f"kernels C + D (one at a time) {cd_ms:.3f} ms; equal")
     log("launches of one small-route call (the first on its basis, so "
         "with its shifted basis): " + json.dumps(per_call))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    msm5.msm_batch(bs_own, s_list)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    log(f"one small-route call's peak above what it was given: "
+        f"{peak_mb:.1f} MB (the {4 * msm5.NWIN * n * AFF / 2**20:.0f} MB "
+        f"leaf tensor of a gather is not made)")
     # E, its shifted basis, F, G, H, the top, its reduce mode
     for rec in records[-7:]:
         rec["small_route_batch_ms"] = small_ms
         rec["cd_same_4_msms_ms"] = cd_ms
+    records[-5]["small_route_call_peak_mb"] = peak_mb
     records[-2]["launches_per_small_route_call"] = per_call
     records[-2].update(tree_times)
     records += v6_kernels(kzg, kzg_big, card)
@@ -530,10 +546,45 @@ def top_adds(w: int) -> int:
     return 2 * adds
 
 
-def tree_kernels(leaves, x1, card):
+def leaf_record(name, replaces, sh, idx, fn, plain, shape, card):
+    """Kernel F or K, the one leaf-level kernel, through its caller's
+    wrapper `fn` against the plain twin (`torch.equal`), both timed, and
+    on the same leaves gathered first (no index).  The bound: 9 products a
+    pair against the basis rows the index reads, read once, the index and
+    the pair sums."""
+    import torch
+
+    from quill_tpu_torch.ec import msm5
+
+    got = fn(sh, idx)
+    check(torch.equal(got, plain(sh, idx)),
+          f"{name} disagrees with its plain twin")
+    leaves = sh[idx.long()].contiguous()
+    check(torch.equal(msm5.tree_up0(leaves), got),
+          f"{name} disagrees with itself on the gathered leaves")
+    k = idx.shape[0] // 2
+    rows = torch.unique(idx).numel()
+    rec = dict(name=name, route="cuda",
+               source="quill_tpu_torch/csrc/msm5.cu + "
+                      "quill_tpu_torch/csrc/tree.cuh",
+               replaces=replaces, shape=shape, max_abs_err=0,
+               ms=cuda_ms(lambda: fn(sh, idx)),
+               plain_ms=cuda_ms(lambda: plain(sh, idx), reps=1),
+               **bound(card, 9 * k, rows * AFF + 2 * k * 4 + k * PT),
+               library_ms=None, basis_rows_read=rows,
+               contiguous_ms=cuda_ms(lambda: msm5.tree_up0(leaves)))
+    log(f"kernel {name}, {k} pairs: {rec['ms']:.3f} ms through the index, "
+        f"{rec['contiguous_ms']:.3f} ms on the gathered leaves, vs plain "
+        f"{rec['plain_ms']:.3f} ms (bound {rec['bound_ms']:.3f} ms); equal "
+        f"triples")
+    return rec
+
+
+def tree_kernels(sh, idx, x1, card):
     """Kernels G and H and the fused top against their plain twins with
     `torch.equal`, at the small route's shapes: one- and two-level G on the
-    leaf pairs x1 (one batch of 4 x 20 x 2^16 leaves), one- and two-level H
+    leaf pairs x1 (one batch of 4 x 20 x 2^16 leaves, the shifted basis sh
+    read through the sort's rows idx), one- and two-level H
     back to them, both two-level launches by lanes at the path's widest
     level of at most `msm5.LANE_LEVEL` points, the top (tree mode) at the
     path's top level, its reduce mode on the collect's 4 runs of 2^14 terms
@@ -659,14 +710,15 @@ def tree_kernels(leaves, x1, card):
         v6_bound_ms=bound(card, 12 * ((1 << 16) - 1),
                           ((1 << 16) + 1) * PT)["bound_ms"])
     del terms, v6
-    got = msm5.prefix_tree(leaves)
+    got = msm5.prefix_tree(sh, idx)
+    leaves = sh[idx.long()].contiguous()
     chain = msm5.prefix_tree_chain(leaves, msm5.tree_up0, msm5.tree_up,
                                    msm5.tree_down)
     check(torch.equal(got, chain), "prefix_tree disagrees with the chain of "
           "one-level launches")
     del got, chain
     times = dict(
-        prefix_tree_ms=cuda_ms(lambda: msm5.prefix_tree(leaves)),
+        prefix_tree_ms=cuda_ms(lambda: msm5.prefix_tree(sh, idx)),
         prefix_tree_chain_ms=cuda_ms(lambda: msm5.prefix_tree_chain(
             leaves, msm5.tree_up0, msm5.tree_up, msm5.tree_down)),
         prefix_tree_top_width=w)
@@ -1016,23 +1068,11 @@ def v6_kernels(kzg, kzg_big, card):
             flat = sh.reshape(-1, 2, fd.NLIMB)
             keys, idx = msm6.sort_keys(fd.from_mont(s, fd.FR), bs.inf,
                                        sh.shape[1])
-            err = points_err(msm6.level0(flat, idx),
-                             msm6.level0_plain(flat, idx))
-            check(err == 0, "kernel K disagrees with its plain twin")
-            k = idx.shape[0] // 2
-            rec = dict(
-                name="msm6_level0", route="cuda",
-                source="quill_tpu_torch/csrc/msm6.cu",
-                replaces="quill_tpu/ec/msm6k.py:58 (_lvl0_kernel)",
-                shape=f"{k} affine leaf pairs gathered through the sort "
-                      f"(a v6 MSM of {n} points: 16 x {n} leaves)",
-                max_abs_err=err, ms=cuda_ms(lambda: msm6.level0(flat, idx)),
-                plain_ms=cuda_ms(lambda: msm6.level0_plain(flat, idx),
-                                 reps=1),
-                **bound(card, 9 * k, k * (2 * 4 + 2 * AFF + PT)),
-                library_ms=None)
-            log(f"kernel K, {k} pairs: {rec['ms']:.3f} ms vs plain "
-                f"{rec['plain_ms']:.3f} ms")
+            rec = leaf_record(
+                "msm6_level0", "quill_tpu/ec/msm6k.py:58 (_lvl0_kernel)",
+                flat, idx, msm6.level0, msm6.level0_plain,
+                f"{idx.shape[0] // 2} affine leaf pairs gathered through the "
+                f"sort (a v6 MSM of {n} points: 16 x {n} leaves)", card)
             walk = v6_walk(keys, flat, idx, card)
             del flat, idx, keys
         del own, bs, sh, s
@@ -1549,7 +1589,7 @@ def profile_prove(hp, witness):
         f"({100 * busy_us / 1e6 / wall:.1f}%)")
     rows.sort(key=lambda e: -e.self_device_time_total)
     ours = ("sc_", "ntt_", "bucket_", "pt_add", "tree_",
-            "seg_scan", "level0_", "mont_mul_")
+            "seg_scan", "void tree_", "mont_mul_")
     for i, e in enumerate(rows):
         if i < 12 or e.key.startswith(ours):
             log(f"  {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.1f} "
@@ -1769,9 +1809,10 @@ def main():
           and "cd" not in v6["routes"],
           "the msm_impl 6 prove took no v6 MSM, or took C + D or v8")
     check(v6["launches"]["msm5_query_walk"] == v6["routes"]["v6"]
+          and v6["launches"]["msm6_level0"] == v6["routes"]["v6"]
           and v6["launches"]["msm5_pt_add"] == 0,
-          "the v6 prove did not take one query walk a v6 MSM, or added with "
-          "kernel E")
+          "the v6 prove did not take one query walk and one leaf-level "
+          "launch a v6 MSM, or added with kernel E")
     v6_launches = v6["launches"]
     del v6, engine6
     log(f"2^{LOG2_ROWS}-row path on v6: {time.time() - t0:.1f}s")

@@ -18,9 +18,15 @@
 //                one launch (below).
 //    pt_dbl      k doublings of each point in one launch (v8's triangle,
 //                ec/msm8.py, where E added a point to itself k times).
-// F  tree_up0    replaces quill_tpu/ec/msm5.py:_up0_kernel: the affine leaf
-//                level, out[j] = leaf[2j] + leaf[2j+1] with Z1 = Z2 = 1 (9
-//                products instead of 12), projective out.
+// F  tree_leaf   replaces quill_tpu/ec/msm5.py:245 _up0_kernel (F, the small
+// K              route) and quill_tpu/ec/msm6k.py:58 _lvl0_kernel (K, v6's
+//                level 0): the affine leaf level gathered through an index,
+//                out[j] = sh[idx[2j]] + sh[idx[2j+1]] with Z1 = Z2 = 1 (9
+//                products instead of 12), projective out.  The TPU kernels
+//                read leaf arrays that an XLA gather had written first; here
+//                the kernel gathers the rows of the shifted basis itself, so
+//                no leaf array is written.  Optionally level 2 in the same
+//                launch (L = 2).
 // G  tree_up     replaces quill_tpu/ec/msm3.py:258 _up_kernel: the up-sweep,
 //                one level (L = 1) or two (L = 2) a launch.
 //    tree_top    replaces the fused top levels (quill_tpu/ec/msm3.py:361
@@ -40,12 +46,13 @@
 // multiply-adds (a low and a high IMAD) and 8 low products: 3,168 32-bit
 // multiply-adds (2,376 for F), against 224 to 384 bytes read and written:
 // 8 to 11 operations a byte, above the card's ~5 int32 multiply-adds a
-// byte (132 SMs x 64 a clock against 3.35 TB/s).  E and F keep everything
-// in registers, since every byte is read once.  G and H stage their spans
-// through shared memory (csrc/tree.cuh has their thread bodies, staging
-// maps and design), so that every global access is a coalesced 16-byte
-// piece and a two-level launch never writes and reads back the level
-// between its two.
+// byte (132 SMs x 64 a clock against 3.35 TB/s).  E's shifted basis and
+// doubling keep everything in registers, since every byte is read once.
+// E's add, F and K, G and H stage their spans through shared memory
+// (csrc/tree.cuh has their thread bodies, staging maps and design), so that
+// every global access is a coalesced 16-byte piece (F and K gather whole
+// 64-byte rows) and a two-level launch never writes and reads back the
+// level between its two.
 //
 // The shifted basis: one thread a base point, its windows' doublings in
 // registers and their normalisation by Montgomery's trick inside the
@@ -113,16 +120,6 @@ query_walk_kernel(const long long* __restrict__ cnt, long long nq,
     pt_st(out + PT_WORDS * i, walk_query(cnt[i], kmin, top, lv, sh, idx));
 }
 
-__global__ void __launch_bounds__(MSM5_BLOCK)
-tree_up0_kernel(const uint32_t* __restrict__ leaves, long long k,
-                uint32_t* __restrict__ out) {
-  long long j = (long long)blockIdx.x * MSM5_BLOCK + threadIdx.x;
-  if (j >= k) return;
-  G1A p = g1a_load(leaves + 32 * j);
-  G1A q = g1a_load(leaves + 32 * j + 16);
-  g1_store(out + 24 * j, g1_add_affine(p, q));
-}
-
 // G's and H's blocks of TREE_NT threads (csrc/tree.cuh): the minimum of
 // resident blocks an SM that ptxas is held to (registers), by measurement
 // (builds with other values timed on an H100; PERF.md): 256 threads and 2
@@ -134,6 +131,46 @@ tree_up0_kernel(const uint32_t* __restrict__ leaves, long long k,
 // an SM): 134 registers in tree mode, 128 and an 8-byte stack frame in
 // reduce mode.
 #define TREE_MINB 2
+
+// F and K, the affine leaf level: block b gathers its pairs' leaves through
+// idx into shared memory (cp.async), adds each pair in its slot, one add a
+// thread, and writes the pair sums out (csrc/tree.cuh has the maps).  L = 2
+// also adds level 2 in the slots, after level 1 is written out, in the same
+// loop, so that the kernel holds one copy of g1_finish.
+template <int L>
+__global__ void __launch_bounds__(LEAF_NT, TREE_MINB)
+tree_leaf_kernel(const uint32_t* __restrict__ sh, const int* __restrict__ idx,
+                 long long k, uint32_t* __restrict__ o1,
+                 uint32_t* __restrict__ o2) {
+  constexpr int P = leaf_span(L);
+  extern __shared__ uint4 tree_sh[];
+  uint32_t* s = reinterpret_cast<uint32_t*>(tree_sh);
+  const long long b = blockIdx.x;
+  for (int i = threadIdx.x; i < 8 * P; i += LEAF_NT)
+    leaf_load(L, P, sh, idx, k, b, i, s);
+  leaf_wait();
+  __syncthreads();
+  constexpr int R1 = P / LEAF_NT, R = L == 2 ? R1 + 1 : R1;
+#pragma unroll 1
+  for (int it = 0; it < R; ++it) {
+    const int phase = it < R1 ? 1 : 2;
+    if (it == R1) {
+      // level 1 out before level 2 is summed over it
+      for (int i = threadIdx.x; i < leaf_store_pieces(P, 1); i += LEAF_NT)
+        leaf_store(P, 1, o1, k, b, i, s);
+      __syncthreads();
+    }
+    const int j = (phase == 1 ? it : it - R1) * LEAF_NT + threadIdx.x;
+    if (leaf_item_live(P, k, b, phase, j)) {
+      G1P p, q;
+      leaf_item_operands(s, phase, j, &p, &q);
+      leaf_item_store(s, phase, j, leaf_add(p, q, phase == 1));
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < leaf_store_pieces(P, L); i += LEAF_NT)
+    leaf_store(P, L, L == 1 ? o1 : o2, L == 1 ? k : (k + 1) >> 1, b, i, s);
+}
 
 // G: block b stages level l's rows [S b, S (b + 1)), adds level l + 1's
 // pairs in shared memory and, for L = 2, level l + 2's, and writes both
@@ -379,20 +416,24 @@ extern "C" int quill_shifted_basis(const void* xy, const void* inf,
   return (int)cudaGetLastError();
 }
 
-// leaves: (2k, 16) affine words; out: (k, 24)
-extern "C" int quill_tree_up0(const void* leaves, long long k, void* out,
-                              void* stream) {
-  if (k <= 0) return 0;
-  tree_up0_kernel<<<blocks(k), MSM5_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)leaves, k, (uint32_t*)out);
-  return (int)cudaGetLastError();
-}
-
 // Once per kernel: dynamic shared memory above the default 48 KB
 template <class K>
 static int tree_launch_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int L>
+static int tree_leaf_launch(const void* sh, const void* idx, long long k,
+                            void* o1, void* o2, void* stream) {
+  constexpr int P = leaf_span(L);
+  const int bytes = 4 * leaf_words(P);
+  static int set = tree_launch_smem(tree_leaf_kernel<L>, bytes);
+  if (set != 0) return set;
+  tree_leaf_kernel<L><<<(unsigned)((k + P - 1) / P), LEAF_NT, bytes,
+                        (cudaStream_t)stream>>>(
+      (const uint32_t*)sh, (const int*)idx, k, (uint32_t*)o1, (uint32_t*)o2);
+  return (int)cudaGetLastError();
 }
 
 template <int L, bool LANES>
@@ -437,6 +478,18 @@ static int tree_top_launch(const void* x, int w, long long blocks, void* out,
                           (cudaStream_t)stream>>>(
       (const uint32_t*)x, w, (uint32_t*)out);
   return (int)cudaGetLastError();
+}
+
+// F and K: sh: (rows, 16) affine words, 16-byte aligned; idx: (2k,) int32
+// rows of sh, each < rows, or NULL for rows 0 .. 2k - 1; o1: (k, 24), o1[j]
+// = sh[idx[2j]] + sh[idx[2j + 1]]; levels 2: also o2: (ceil(k / 2), 24),
+// level 1 padded with the identity
+extern "C" int quill_tree_leaf(const void* sh, const void* idx, long long k,
+                               int levels, void* o1, void* o2, void* stream) {
+  if (k <= 0) return 0;
+  if (levels == 1) return tree_leaf_launch<1>(sh, idx, k, o1, o2, stream);
+  if (levels == 2) return tree_leaf_launch<2>(sh, idx, k, o1, o2, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // G, one level: x: (2k, 24); out: (k, 24)

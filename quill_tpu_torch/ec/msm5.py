@@ -20,7 +20,9 @@ For B MSMs over one CRS chunk of n <= 2^16 points:
    per CRS chunk on the root basis, so slices share it;
 3. leaves: every (MSM b, window w, point i) is keyed b * 8192 + digit, one
    stable `torch.sort` orders the B * 20 * n keys, and the leaves are the
-   shifted affine points in that order;
+   shifted affine points in that order, read through their rows idx (the
+   JAX package gathers them into a leaf array first; kernel F gathers them
+   itself);
 4. prefix tree (`msm3.py:395 _tree(full=False)`, `msm5.py:288 _tree5`):
    kernel F adds affine leaf pairs, kernel G adds the projective levels up
    two a launch (odd levels padded with the identity) until one holds at
@@ -87,7 +89,8 @@ def _fns():
         _FN["shifted"] = build.bind(
             lib, "quill_shifted_basis",
             [vp, vp, i64, i64, build.I32, build.I32, vp, vp, vp])
-        _FN["up0"] = build.bind(lib, "quill_tree_up0", [vp, i64, vp, vp])
+        _FN["leaf"] = build.bind(lib, "quill_tree_leaf",
+                                 [vp, vp, i64, build.I32, vp, vp, vp])
         _FN["up"] = build.bind(lib, "quill_tree_up", [vp, i64, vp, vp])
         _FN["up2"] = build.bind(lib, "quill_tree_up2",
                                 [vp, i64, vp, vp, vp])
@@ -188,23 +191,48 @@ def pt_dbl_plain(p, k: int = 1):
 # ---------------------------------------------------------------------------
 
 
-def tree_up0(leaves):
-    """Kernel F: (2k, 2, 8) affine leaves -> (k, 3, 8) projective pair
-    sums o[j] = leaf[2j] + leaf[2j+1] (9 products, Z = 1)."""
-    if not leaves.is_cuda:
-        return tree_up0_plain(leaves)
-    _check_points(leaves, 2, "leaves")
-    _require(leaves.shape[0] % 2 == 0, "odd number of leaves")
-    k = leaves.shape[0] // 2
-    out = _out(k, leaves)
-    rc = _fns()["up0"](leaves.data_ptr(), k, out.data_ptr(),
-                       build.stream_ptr())
-    build.check(rc, "msm5_tree_up0")
-    build.count("msm5_tree_up0")
-    return out
+def leaf_level(sh, idx, counter: str, levels: int = 1):
+    """Kernels F and K, one kernel: an (r, 2, 8) affine basis and (2k,)
+    int32 rows of it (None: rows 0 .. 2k - 1, contiguous leaves) -> (k, 3,
+    8) pair sums o[j] = sh[idx[2j]] + sh[idx[2j + 1]] (9 products, Z = 1),
+    gathered in the kernel; levels 2: (level 1, level 2), level 2 (ceil(k /
+    2), 3, 8) the pairs of level 1 padded with the identity.  `counter`
+    names the caller's launch count.  Every idx entry must be below r: the
+    kernel does not check, and a row out of range faults on the card."""
+    _check_points(sh, 2, "sh")
+    _require(sh.data_ptr() % 16 == 0, "sh must be 16-byte aligned")
+    if idx is None:
+        _require(sh.shape[0] % 2 == 0, "odd number of leaves")
+        k = sh.shape[0] // 2
+    else:
+        _require(idx.is_cuda and idx.dtype == torch.int32
+                 and idx.is_contiguous() and idx.dim() == 1
+                 and idx.shape[0] % 2 == 0,
+                 "idx must be a contiguous (2k,) int32 tensor on CUDA")
+        k = idx.shape[0] // 2
+    _require(levels in (1, 2), "one or two levels")
+    o1 = _out(k, sh)
+    o2 = _out(_half(k), sh) if levels == 2 else None
+    rc = _fns()["leaf"](sh.data_ptr(), None if idx is None else idx.data_ptr(),
+                        k, levels, o1.data_ptr(),
+                        None if o2 is None else o2.data_ptr(),
+                        build.stream_ptr())
+    build.check(rc, counter)
+    build.count(counter)
+    return o1 if levels == 1 else (o1, o2)
 
 
-def tree_up0_plain(leaves):
+def tree_up0(sh, idx=None):
+    """Kernel F: the small route's leaf level, `leaf_level` on the shifted
+    basis and the sort's rows (idx None: sh holds the 2k leaves)."""
+    if not sh.is_cuda:
+        return tree_up0_plain(sh, idx)
+    return leaf_level(sh, idx, "msm5_tree_up0")
+
+
+def tree_up0_plain(sh, idx=None):
+    """The leaves gathered (sh[idx]), then each pair added."""
+    leaves = sh if idx is None else sh[idx.to(torch.int64)]
     w = fd.to_w16(leaves)
     return fd.from_w16(ed.aadd_w(w[0::2], w[1::2]))
 
@@ -499,27 +527,28 @@ def window_digits(s):
     return torch.stack(out, 1)
 
 
-def sort_leaves(scs, inf, sh):
-    """(B, n, 8) canonical scalars, the chunk's (n,) infinity mask and its
-    (NWIN * n, 2, 8) shifted basis -> (sorted keys, perm, leaves): leaf k is
-    the shifted point of flat element perm[k] = (b, w, i), its key
-    b * 8192 + digit."""
+def sort_leaves(scs, inf):
+    """(B, n, 8) canonical scalars and the chunk's (n,) infinity mask ->
+    (sorted keys, idx): leaf k is the element (b, w, i) of sorted position
+    k, its key b * 8192 + digit, and idx[k] (int32) its row w * n + i of
+    the chunk's (NWIN * n, 2, 8) shifted basis.  No leaf is gathered:
+    kernel F reads the rows through idx."""
     nb, n = scs.shape[:2]
     d = window_digits(scs.reshape(nb * n, fd.NLIMB)).reshape(nb, n, NWIN)
     d = d.masked_fill(inf[None, :, None], 0)
     off = torch.arange(nb, device=scs.device) * NBUCK
     keys = (d.transpose(1, 2) + off[:, None, None]).reshape(-1)
     keys, perm = torch.sort(keys, stable=True)
-    leaves = sh[perm % (NWIN * n)].contiguous()
-    return keys, perm, leaves
+    return keys, (perm % (NWIN * n)).to(torch.int32)
 
 
-def prefix_tree(leaves):
-    """(T, 2, 8) affine leaves, T even -> I1 (T/2, 3, 8), I1[j] the sum of
-    leaves 0 to 2j + 1: kernel F, kernel G two levels a launch down to a
-    level of at most TOP points, the fused top, kernel H two levels a
-    launch."""
-    levels = [tree_up0(leaves)]
+def prefix_tree(sh, idx=None):
+    """The shifted basis (r, 2, 8) and the T sorted leaves' rows idx (T,)
+    int32, T even (None: sh holds the T leaves) -> I1 (T/2, 3, 8), I1[j]
+    the sum of leaves 0 to 2j + 1: kernel F, kernel G two levels a launch
+    down to a level of at most TOP points, the fused top, kernel H two
+    levels a launch."""
+    levels = [tree_up0(sh, idx)]
     while levels[-1].shape[0] > TOP:
         levels += tree_up2(levels[-1])
     p = tree_top(levels[-1])
@@ -529,15 +558,16 @@ def prefix_tree(leaves):
 
 
 def prefix_tree_chain(leaves, up0=None, up=None, down=None):
-    """`prefix_tree` one level a launch, as the route ran before kernels G
-    and H took two levels a launch: up0, up and down default to the plain
-    twins of kernels F, G and H (the card's one-level launches where the
-    caller passes `tree_up0`, `tree_up`, `tree_down`)."""
+    """`prefix_tree` of (T, 2, 8) contiguous leaves one level a launch, as
+    the route ran before kernels G and H took two levels a launch: up0, up
+    and down default to the plain twins of kernels F, G and H (the card's
+    one-level launches where the caller passes `tree_up0`, `tree_up`,
+    `tree_down`)."""
     return _chain((up0 or tree_up0_plain)(leaves), up or tree_up_plain,
                   down or tree_down_plain)
 
 
-def collect(keys, perm, i1, sh, nb: int):
+def collect(keys, idx, i1, sh, nb: int):
     """-> (S, T), each (nb, 3, 8): S_b the sum of the 8191 bucket-end
     prefixes P[e_c] of MSM b, T_b its last prefix P[e_8191]."""
     dev = keys.device
@@ -552,7 +582,7 @@ def collect(keys, perm, i1, sh, nb: int):
     vals = torch.where(ok[:, None, None], i1[pc // 2], ident)
     # P[2j] = I1[j] - leaf[2j + 1]; the last position is odd, so 2j + 1
     # is always a leaf
-    nxt = sh[perm[pc + 1 - pc % 2] % sh.shape[0]]
+    nxt = sh[idx[pc + 1 - pc % 2].to(torch.int64)]
     one = fd.const(1, FQ, dev).expand(q.shape[0], 1, fd.NLIMB)
     neg = torch.cat((nxt[:, :1], fd.neg(nxt[:, 1], FQ).unsqueeze(1), one), 1)
     corr = torch.where((ok & (pc % 2 == 0))[:, None, None], neg, ident)
@@ -591,10 +621,9 @@ def msm_batch(basis: TorchBasis, scalars: list) -> list:
         for b, c in enumerate(canon):
             part = c[lo:lo + nj]
             scs[b, :part.shape[0]] = part
-        keys, perm, leaves = sort_leaves(scs, root.inf[lo:lo + nj], sh)
-        i1 = prefix_tree(leaves)
-        del leaves
-        s_pts, t_pts = collect(keys, perm, i1, sh, nb)
+        keys, idx = sort_leaves(scs, root.inf[lo:lo + nj])
+        i1 = prefix_tree(sh, idx)
+        s_pts, t_pts = collect(keys, idx, i1, sh, nb)
         s_acc = [a.add(p) for a, p in zip(s_acc, ed.proj_to_jacobians(s_pts))]
         t_acc = [a.add(p) for a, p in zip(t_acc, ed.proj_to_jacobians(t_pts))]
     return finalize(s_acc, t_acc)

@@ -1,7 +1,8 @@
 """The v6 MSM route: one global sort over a flat 16-window space, a binary
-tree over the sorted leaves and Fenwick prefix queries; kernel K
-(`csrc/msm6.cu`) and its plain PyTorch twin, with kernels E, G and the
-fused top (`csrc/msm5.cu`) for the projective adds.
+tree over the sorted leaves and Fenwick prefix queries; kernel K (the
+leaf-level kernel it shares with kernel F, `csrc/msm5.cu` + `csrc/tree.cuh`)
+and its plain PyTorch twin, with kernels E, G and the fused top for the
+projective adds.
 
 Counterpart of `quill_tpu/ec/msm6.py` and `quill_tpu/ec/msm6k.py`, the
 route `QUILL_MSM_IMPL=6` gives the JAX engine (`TorchEngine(msm_impl="6")`
@@ -74,17 +75,6 @@ MIN_TOP = msm5.TOP
 CHUNK = msm5.CHUNK         # the shifted basis grows by whole chunks
 CACHE_KEY = "v6"           # of the shifted basis in TorchBasis.shifted
 
-_FN = {}
-
-
-def _fn():
-    if not _FN:
-        _FN["k"] = build.bind(build.lib("msm6"), "quill_msm6_level0",
-                              [build.VP, build.VP, build.I64, build.VP,
-                               build.VP])
-    return _FN["k"]
-
-
 # ---------------------------------------------------------------------------
 # kernel K: the affine level 0
 # ---------------------------------------------------------------------------
@@ -93,29 +83,17 @@ def _fn():
 def level0(sh, idx):
     """Kernel K: an (r, 2, 8) affine shifted basis and (2k,) int32 rows of
     it in sorted order -> (k, 3, 8) level 1, o[j] = sh[idx[2j]] +
-    sh[idx[2j + 1]] (9 products, Z = 1).  Every idx entry must be below r:
-    the kernel does not check, and a row out of range faults on the card."""
+    sh[idx[2j + 1]] (9 products, Z = 1): kernel F's launch
+    (`msm5.leaf_level`), counted as `msm6_level0`.  Every idx entry must be
+    below r: the kernel does not check, and a row out of range faults on
+    the card."""
     if not sh.is_cuda:
         return level0_plain(sh, idx)
-    if not (sh.dtype == torch.int32 and sh.is_contiguous() and sh.dim() == 3
-            and sh.shape[1:] == (2, fd.NLIMB)):
-        raise ValueError("sh must be a contiguous (r, 2, 8) int32 tensor")
-    if not (idx.is_cuda and idx.dtype == torch.int32 and idx.is_contiguous()
-            and idx.dim() == 1 and idx.shape[0] % 2 == 0):
-        raise ValueError("idx must be a contiguous (2k,) int32 tensor on "
-                         "CUDA")
-    k = idx.shape[0] // 2
-    out = torch.empty((k, 3, fd.NLIMB), dtype=torch.int32, device=sh.device)
-    rc = _fn()(sh.data_ptr(), idx.data_ptr(), k, out.data_ptr(),
-               build.stream_ptr())
-    build.check(rc, "msm6_level0")
-    build.count("msm6_level0")
-    return out
+    return msm5.leaf_level(sh, idx, "msm6_level0")
 
 
 def level0_plain(sh, idx):
-    w = fd.to_w16(sh[idx.to(torch.int64)])
-    return fd.from_w16(ed.aadd_w(w[0::2], w[1::2]))
+    return msm5.tree_up0_plain(sh, idx)
 
 
 # ---------------------------------------------------------------------------

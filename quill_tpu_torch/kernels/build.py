@@ -37,7 +37,6 @@ LIBS = {
     "msm5": "msm5.cu",
     "msm8": "msm8.cu",
     "fixed_base": "fixed_base.cu",
-    "msm6": "msm6.cu",
     "field": "field.cu",
     "quotient": "quotient.cu",
 }
@@ -70,14 +69,14 @@ LAUNCHES = {
     "msm5_query_walk": 0,    # kernel E: v6's bucket-query walk
     "msm5_shifted_basis": 0,  # kernel E: the shifted basis, one launch
     "msm5_pt_dbl": 0,        # kernel E: k doublings (v8's triangle)
-    "msm5_tree_up0": 0,      # kernel F
+    "msm5_tree_up0": 0,      # kernel F: the leaf level, the small route
     "msm5_tree_up": 0,       # kernel G: one or two levels
     "msm5_tree_down": 0,     # kernel H: one or two levels
     "msm5_tree_top": 0,      # kernel G's fused top, tree mode
     "msm5_tree_reduce": 0,   # kernel G's fused top, reduce mode
     "msm8_seg_scan": 0,      # kernel I
     "fixed_base": 0,         # kernel J
-    "msm6_level0": 0,        # kernel K
+    "msm6_level0": 0,        # kernel K: the same kernel as F, on v6
     "field_mul": 0,          # kernel L
     "quotient": 0,           # kernel M (one a batch: its three phases)
     "msm8_collect": 0,       # kernel E, v8 collect mode (csrc/msm8.cu)

@@ -1,26 +1,39 @@
-"""The small route's prefix tree (kernels F, G and H, `csrc/msm5.cu` +
-`csrc/tree.cuh`) split into its launches on the card.
+"""The prefix tree of the small route (kernels F, G and H, `csrc/msm5.cu` +
+`csrc/tree.cuh`) and v6's leaf level (kernel K, the same kernel as F)
+split into their launches on the card.
 
     python quill_tpu_torch/probe_tree.py [--root CHECKOUT] [--ptxas]
-        [--reps N]
+        [--reps N] [--trial]
 
-`--root` imports `quill_tpu_torch` from another checkout with the same
-tree API (default: this one), so that one command can measure two trees
-in turn.
+`--root` imports `quill_tpu_torch` from another checkout (default: this
+one), so that one command can measure two trees in turn.  A checkout whose
+`sort_leaves` still gathers the leaves (three outputs: keys, perm, leaves)
+is run by that API: its gather is timed apart, and F, the tree and the
+collect take the leaves.
 
-1. with `--ptxas`, builds `csrc/msm5.cu` with `nvcc -Xptxas -v` and prints
-   ptxas's registers, stack frame and spills for its kernels;
+1. with `--ptxas`, builds `csrc/msm5.cu` (and `csrc/msm6.cu` where the
+   checkout has it) with `nvcc -Xptxas -v` and prints ptxas's registers,
+   stack frame and spills for their kernels;
 2. makes one batch of the small route as `chip_smoke.py` does: 4 MSMs of
    uniform scalars over the first 2^16 points of a tau CRS, 4 x 20 x 2^16
-   sorted affine leaves;
-3. times, by CUDA events (mean of N after a warm-up): kernel F on the
-   leaves; one-level G on its output (1,310,720 adds); one-level H at the
-   finest level; the whole `prefix_tree`, and its parts: F, the up
-   launches, the fused top (where there is one) and the down launches,
-   and each two-level launch alone;
-   `collect` whole and its pairwise reduction alone (4 runs of 2^14
-   points); v6's `reduce_sum` on 2^16 points; one `msm_batch` call and its
-   launches by kernel.
+   sorted leaves;
+3. times, by CUDA events (mean of N after a warm-up): `sort_leaves` (and
+   on a gathering API its leaf gather alone); kernel F on the batch (on
+   the sort's index, or on the gathered leaves); one-level G on F's
+   output (1,310,720 adds); one-level H at the finest level; the whole
+   `prefix_tree` (with the gather where the API has one) and its parts:
+   F, the up launches, the fused top and the down launches, and each
+   two-level launch alone; `collect` whole and its pairwise reduction
+   alone (4 runs of 2^14 points); v6's `reduce_sum` on 2^16 points; one
+   `msm_batch` call, its peak device memory and its launches by kernel;
+4. v6 at the 2^16-row prove's largest MSM, 2^18 points of the CRS: kernel
+   K on its 2^21 leaf pairs (CUDA events) and one whole v6 MSM (the host
+   clock, synchronised);
+5. with `--trial` (this tree's API only), the leaf level two levels a
+   launch (L = 2): the launch alone at F's and K's shapes, the whole
+   prefix tree with it (one-level H for the finest level where the levels'
+   parity asks, held to `prefix_tree` with `torch.equal`) and a v6 MSM
+   with it (held to the one-level MSM).
 
 The last line is one JSON object with the card's name and power limit.
 """
@@ -28,15 +41,18 @@ The last line is one JSON object with the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NB = 4                     # MSMs in the batch, as a 2^16-row prove's
 TERMS = 1 << 14            # collect's terms a MSM: 8191 + 8191 + 2
 V6_REDUCE = 1 << 16        # v6's reduce_sum: 2^16 - 1 queries + 1
+V6_POINTS = 1 << 18        # the 2^16-row prove's largest v6 MSM
 
 
 def _events(fn, reps: int) -> float:
@@ -55,29 +71,92 @@ def _events(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def batch(dev):
-    """-> (basis, Montgomery scalars, keys, perm, leaves, shifted basis)
-    of one small-route batch of NB MSMs over 2^16 CRS points."""
+def _wall(fn, reps: int) -> float:
+    """Host-clock mean of fn() and a synchronise, after a warm-up, ms."""
     import torch
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def gathers() -> bool:
+    """True where the checkout's `sort_leaves` gathers the leaves."""
     from quill_tpu_torch.ec import msm5
-    from quill_tpu_torch.fields import device as fd
-    from quill_tpu_torch.probe_msm import scalars
-    from quill_tpu_torch.probe_shifted import crs
 
-    basis = crs(msm5.CHUNK, dev)
-    sh = msm5.shifted(basis, 0)
-    s_list = [scalars(msm5.CHUNK, dev, 70 + b) for b in range(NB)]
-    scs = torch.stack([fd.from_mont(s, fd.FR) for s in s_list])
-    keys, perm, leaves = msm5.sort_leaves(scs, basis.inf, sh)
-    return basis, s_list, keys, perm, leaves, sh
+    return len(inspect.signature(msm5.sort_leaves).parameters) == 3
 
 
-def tree_parts(leaves, reps: int) -> dict:
+class Batch:
+    """One small-route batch of NB MSMs over 2^16 CRS points, by the
+    checkout's API: `sorted` is the sort's second output (perm or idx),
+    `leaf_args` what F and `prefix_tree` take ((leaves,) or (sh, idx))."""
+
+    def __init__(self, dev):
+        import torch
+
+        from quill_tpu_torch.ec import msm5
+        from quill_tpu_torch.fields import device as fd
+        from quill_tpu_torch.probe_msm import scalars
+        from quill_tpu_torch.probe_shifted import crs
+
+        self.basis = crs(msm5.CHUNK, dev)
+        self.sh = msm5.shifted(self.basis, 0)
+        self.s_list = [scalars(msm5.CHUNK, dev, 70 + b) for b in range(NB)]
+        self.scs = torch.stack([fd.from_mont(s, fd.FR) for s in self.s_list])
+        self.old = gathers()
+        if self.old:
+            self.keys, self.sorted, leaves = self.sort()
+            self.leaf_args = (leaves,)
+        else:
+            self.keys, self.sorted = self.sort()
+            self.leaf_args = (self.sh, self.sorted)
+
+    def sort(self):
+        from quill_tpu_torch.ec import msm5
+
+        if self.old:
+            return msm5.sort_leaves(self.scs, self.basis.inf, self.sh)
+        return msm5.sort_leaves(self.scs, self.basis.inf)
+
+    def gather(self):
+        """The gathering API's leaf gather alone (`sort_leaves`' last
+        line)."""
+        from quill_tpu_torch.ec import msm5
+
+        return self.sh[self.sorted % (msm5.NWIN * msm5.CHUNK)].contiguous()
+
+    def tree_from_sort(self):
+        """The sort's output to the tree's: the gather and `prefix_tree`
+        on a gathering API, `prefix_tree` alone on this one."""
+        from quill_tpu_torch.ec import msm5
+
+        if self.old:
+            return msm5.prefix_tree(self.gather())
+        return msm5.prefix_tree(*self.leaf_args)
+
+
+def leaf_times(b: Batch, reps: int) -> dict:
+    from quill_tpu_torch.ec import msm5
+
+    out = dict(pairs=b.keys.shape[0] // 2, gathers=b.old,
+               sort_ms=_events(b.sort, reps),
+               f_ms=_events(lambda: msm5.tree_up0(*b.leaf_args), reps),
+               tree_from_sort_ms=_events(b.tree_from_sort, reps))
+    if b.old:
+        out["gather_ms"] = _events(b.gather, reps)
+    return out
+
+
+def tree_parts(args, reps: int) -> dict:
     """`prefix_tree` whole and launch group by launch group."""
     from quill_tpu_torch.ec import msm5
 
-    x1 = msm5.tree_up0(leaves)
+    x1 = msm5.tree_up0(*args)
     levels = [x1]
     while levels[-1].shape[0] > msm5.TOP:
         levels += msm5.tree_up2(levels[-1])
@@ -98,8 +177,8 @@ def tree_parts(leaves, reps: int) -> dict:
             q = msm5.tree_down2(q, levels[k + 1], levels[k])
 
     return dict(
-        whole_ms=_events(lambda: msm5.prefix_tree(leaves), reps),
-        f_ms=_events(lambda: msm5.tree_up0(leaves), reps),
+        whole_ms=_events(lambda: msm5.prefix_tree(*args), reps),
+        f_ms=_events(lambda: msm5.tree_up0(*args), reps),
         up_ms=_events(up, reps),
         top_ms=_events(lambda: msm5.tree_top(levels[-1]), reps),
         top_width=levels[-1].shape[0], down_ms=_events(down, reps),
@@ -123,15 +202,114 @@ def reductions(x1, reps: int) -> dict:
                 v6_reduce_sum_ms=_events(lambda: msm6.reduce_sum(v6), reps))
 
 
-def launches_per_call(basis, s_list) -> dict:
+def msm_batch_call(b: Batch, reps: int) -> dict:
+    """One `msm_batch` call: its time, its peak device memory above what
+    was allocated before it, and its launches by kernel."""
+    import torch
+
     from quill_tpu_torch.ec import msm5
     from quill_tpu_torch.kernels import build
 
-    msm5.msm_batch(basis, s_list)         # the shifted basis is cached
+    call = lambda: msm5.msm_batch(b.basis, b.s_list)   # noqa: E731
+    ms = _events(call, reps)        # the shifted basis is cached
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     before = dict(build.LAUNCHES)
-    msm5.msm_batch(basis, s_list)
-    return {k: v - before[k] for k, v in build.LAUNCHES.items()
-            if v != before[k]}
+    call()
+    torch.cuda.synchronize()
+    return dict(msm_batch_ms=ms,
+                msm_batch_peak_mb=(torch.cuda.max_memory_allocated() - base)
+                / 2**20,
+                launches_per_call={k: v - before[k]
+                                   for k, v in build.LAUNCHES.items()
+                                   if v != before[k]})
+
+
+def v6(dev, reps: int, trial: bool) -> dict:
+    """Kernel K and a whole v6 MSM at V6_POINTS points; with `trial`, both
+    with the leaf level two levels a launch."""
+    import torch
+
+    from quill_tpu_torch.ec import msm5, msm6
+    from quill_tpu_torch.fields import device as fd
+    from quill_tpu_torch.probe_msm import scalars
+    from quill_tpu_torch.probe_shifted import crs
+
+    bs = crs(V6_POINTS, dev)
+    s = scalars(V6_POINTS, dev, 90)
+    sh = msm6.shifted(bs, V6_POINTS)
+    flat = sh.reshape(-1, 2, fd.NLIMB)
+    _, idx = msm6.sort_keys(fd.from_mont(s, fd.FR), bs.inf, sh.shape[1])
+    out = dict(pairs=idx.shape[0] // 2,
+               k_ms=_events(lambda: msm6.level0(flat, idx), reps),
+               msm_ms=_wall(lambda: msm6.msm(bs, s), reps))
+    if trial:
+        out["k_two_levels_ms"] = _events(
+            lambda: msm5.leaf_level(flat, idx, "msm6_level0", 2), reps)
+        want = msm6.msm(bs, s)
+        one, two = msm6.tree(flat, idx), tree_two_leaf_levels(flat, idx)
+        if len(one) != len(two) or not all(
+                torch.equal(a, c) for a, c in zip(one, two)):
+            raise SystemExit("probe_tree: v6's levels with L = 2 differ")
+        del one, two
+        one = msm6.tree
+        msm6.tree = tree_two_leaf_levels
+        try:
+            if msm6.msm(bs, s) != want:
+                raise SystemExit("probe_tree: v6 with L = 2 differs")
+            out["msm_two_leaf_levels_ms"] = _wall(lambda: msm6.msm(bs, s),
+                                                  reps)
+        finally:
+            msm6.tree = one
+    return out
+
+
+def tree_two_leaf_levels(sh, idx) -> list:
+    """`msm6.tree` with the leaf level two levels a launch."""
+    from quill_tpu_torch.ec import msm5, msm6
+
+    levels = list(msm5.leaf_level(sh, idx, "msm6_level0", 2))
+    while levels[-1].shape[0] > msm6.MIN_TOP:
+        if levels[-1].shape[0] > 2 * msm6.MIN_TOP:
+            levels += msm5.tree_up2(levels[-1])
+        else:
+            levels.append(msm5.tree_up(levels[-1]))
+    return levels
+
+
+def prefix_tree_two_leaf_levels(sh, idx):
+    """`msm5.prefix_tree` with the leaf level two levels a launch: the
+    levels' count changes parity, so where the down-sweep's two-level
+    launches end at level 2, one-level H takes level 1."""
+    from quill_tpu_torch.ec import msm5
+
+    levels = list(msm5.leaf_level(sh, idx, "msm5_tree_up0", 2))
+    while levels[-1].shape[0] > msm5.TOP:
+        levels += msm5.tree_up2(levels[-1])
+    p = msm5.tree_top(levels[-1])
+    k = len(levels) - 3
+    while k >= 0:
+        p = msm5.tree_down2(p, levels[k + 1], levels[k])
+        k -= 2
+    if k == -1:
+        p = msm5.tree_down(p, msm5._pad(levels[0]))[:levels[0].shape[0]]
+    return p
+
+
+def trial_small(b: Batch, reps: int) -> dict:
+    import torch
+
+    from quill_tpu_torch.ec import msm5
+
+    got = prefix_tree_two_leaf_levels(*b.leaf_args)
+    if not torch.equal(got, msm5.prefix_tree(*b.leaf_args)):
+        raise SystemExit("probe_tree: the tree with L = 2 differs")
+    return dict(
+        f_two_levels_ms=_events(lambda: msm5.leaf_level(
+            *b.leaf_args, "msm5_tree_up0", 2), reps),
+        whole_two_leaf_levels_ms=_events(
+            lambda: prefix_tree_two_leaf_levels(*b.leaf_args), reps))
 
 
 def main():
@@ -139,11 +317,13 @@ def main():
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--trial", action="store_true")
     args = ap.parse_args()
     sys.path[0] = os.path.abspath(args.root)
     import torch
 
     from quill_tpu_torch.ec import msm5
+    from quill_tpu_torch.kernels import build
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -155,29 +335,37 @@ def main():
     if args.ptxas:
         from quill_tpu_torch.probe_msm import ptxas
 
-        res["ptxas"] = ptxas("msm5")
+        res["ptxas"] = {lib: ptxas(lib) for lib in ("msm5", "msm6")
+                        if lib in build.LIBS}
         print(f"ptxas: {json.dumps(res['ptxas'])}", flush=True)
-    basis, s_list, keys, perm, leaves, sh = batch(dev)
-    x1 = msm5.tree_up0(leaves)
-    x2 = msm5.tree_up(x1)
     reps = args.reps
+    b = Batch(dev)
+    res["leaf"] = leaf_times(b, reps)
+    print(f"leaf: {json.dumps(res['leaf'])}", flush=True)
+    x1 = msm5.tree_up0(*b.leaf_args)
+    x2 = msm5.tree_up(x1)
     res["one_level"] = dict(
         adds=x2.shape[0], g_ms=_events(lambda: msm5.tree_up(x1), reps),
         h_ms=_events(lambda: msm5.tree_down(x2, x1), reps))
     print(f"one_level: {json.dumps(res['one_level'])}", flush=True)
-    res["tree"] = tree_parts(leaves, reps)
+    del x2
+    res["tree"] = tree_parts(b.leaf_args, reps)
     print(f"tree: {json.dumps(res['tree'])}", flush=True)
-    i1 = msm5.prefix_tree(leaves)
-    res["collect_ms"] = _events(lambda: msm5.collect(keys, perm, i1, sh, NB),
-                                reps)
+    if args.trial:
+        res["trial"] = trial_small(b, reps)
+        print(f"trial: {json.dumps(res['trial'])}", flush=True)
+    i1 = msm5.prefix_tree(*b.leaf_args)
+    res["collect_ms"] = _events(lambda: msm5.collect(
+        b.keys, b.sorted, i1, b.sh, NB), reps)
     res.update(reductions(x1, reps))
-    res["msm_batch_ms"] = _events(lambda: msm5.msm_batch(basis, s_list),
-                                  reps)
-    res["launches_per_call"] = launches_per_call(basis, s_list)
+    del x1, i1
+    res.update(msm_batch_call(b, reps))
     keys_ = ("collect_ms", "collect_reduce_ms", "v6_reduce_sum_ms",
-             "msm_batch_ms", "launches_per_call")
+             "msm_batch_ms", "msm_batch_peak_mb", "launches_per_call")
     print(f"collect: {json.dumps({k: res[k] for k in keys_})}", flush=True)
-    del x2, i1
+    del b
+    res["v6"] = v6(dev, reps, args.trial)
+    print(f"v6: {json.dumps(res['v6'])}", flush=True)
     print(json.dumps(res))
 
 

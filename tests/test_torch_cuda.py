@@ -279,9 +279,11 @@ def test_kernels_e_to_h_match_plain(dev):
     ints = [[RNG.randrange(R) for _ in range(256)] for _ in range(3)]
     scalars = [fd.from_ints(v, fd.FR, dev) for v in ints]
     scs = torch.stack([fd.from_mont(s, fd.FR) for s in scalars])
-    _, _, leaves = msm5.sort_leaves(scs, inf, sh)
-    x1 = msm5.tree_up0(leaves)
-    assert torch.equal(x1, msm5.tree_up0_plain(leaves))
+    _, idx = msm5.sort_leaves(scs, inf)
+    x1 = msm5.tree_up0(sh, idx)
+    assert torch.equal(x1, msm5.tree_up0_plain(sh, idx))
+    leaves = sh[idx.long()].contiguous()
+    assert torch.equal(msm5.tree_up0(leaves), x1)
     x2 = msm5.tree_up(x1)
     assert torch.equal(x2, msm5.tree_up_plain(x1))
     assert torch.equal(msm5.tree_down(x2, x1), msm5.tree_down_plain(x2, x1))
@@ -361,10 +363,11 @@ def test_prefix_tree_matches_one_level_chain(dev):
     scalars = [fd.from_ints(v, fd.FR, dev) for v in ints]
     scs = torch.stack([fd.from_mont(s, fd.FR) for s in scalars])
     sh = msm5.shifted(basis, 0)
-    _, _, leaves = msm5.sort_leaves(scs, basis.inf, sh)
-    got = msm5.prefix_tree(leaves)
+    _, idx = msm5.sort_leaves(scs, basis.inf)
+    got = msm5.prefix_tree(sh, idx)
     assert torch.equal(got, msm5.prefix_tree_chain(
-        leaves, msm5.tree_up0, msm5.tree_up, msm5.tree_down))
+        sh[idx.long()].contiguous(), msm5.tree_up0, msm5.tree_up,
+        msm5.tree_down))
     before = dict(build.LAUNCHES)
     out = msm5.msm_batch(basis, scalars)
     n = {k: v - before[k] for k, v in build.LAUNCHES.items()}
@@ -610,6 +613,39 @@ def test_kernel_k_matches_plain(dev):
     assert torch.equal(msm6.level0(sh, idx), msm6.level0_plain(sh, idx))
     assert build.LAUNCHES["msm6_level0"] == before + 1
     assert msm6.msm(basis, s) == M.msm(basis, s) == curve.msm_host(pts, ints)
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("k", [1, 2, 3, 255, 256, 257, 513, 5000])
+def test_leaf_level_matches_plain(dev, k, levels):
+    """Kernels F and K's one kernel at 1 to 5,000 pairs, one and two levels
+    a launch: through a random index of a 600-row basis (P + P and P + (-P)
+    among the pairs) and on contiguous leaves (no index), each launch
+    counted once under its caller's name."""
+    from quill_tpu_torch.ec import msm5, msm6
+
+    g = curve.g1_generator()
+    aff = [g.scalar_mul(j + 2).to_affine() for j in range(300)]
+    aff += [curve.Affine(a.x, -a.y) for a in aff]
+    sh, _ = ed.affines_to_tensor(aff, dev)
+    idx = torch.tensor([RNG.randrange(600) for _ in range(2 * k)],
+                       dtype=torch.int32, device=dev)
+    if k >= 2:
+        idx[1] = (idx[0] + 300) % 600
+        idx[3] = idx[2]
+    want = msm5.tree_up0_plain(sh, idx)
+    before = dict(build.LAUNCHES)
+    got = msm5.leaf_level(sh, idx, "msm5_tree_up0", levels)
+    o1 = got if levels == 1 else got[0]
+    assert torch.equal(o1, want)
+    if levels == 2:
+        assert torch.equal(got[1], msm5.tree_up_plain(msm5._pad(want)))
+    assert torch.equal(msm6.level0(sh, idx), want)
+    leaves = sh[idx.long()].contiguous()
+    assert torch.equal(msm5.tree_up0(leaves), want)
+    n = {c: build.LAUNCHES[c] - before[c]
+         for c in ("msm5_tree_up0", "msm6_level0")}
+    assert n == {"msm5_tree_up0": 2, "msm6_level0": 1}
 
 
 @pytest.mark.parametrize("lanes", [False, True])

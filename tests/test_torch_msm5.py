@@ -7,8 +7,12 @@ plain twins on the CPU) against the JAX package.
   default and other `msm_shift_max` bounds, and `msm_many` batches
   small-route jobs in padded groups;
 - shifted-basis rows equal 2^(13 w) G_i by `quill_tpu.ec.curve`;
-- the prefix tree's wiring: with integers in place of points it gives
-  running sums (as `tests/test_msm_tree.py` checks the TPU tree);
+- the prefix tree's wiring: with integers in place of points, read
+  through an index, it gives running sums (as `tests/test_msm_tree.py`
+  checks the TPU tree);
+- kernel F's twin through an index against ONE interpret-mode call of the
+  Pallas kernel it replaces, `quill_tpu.ec.msm5._up0_call(1, 128)`
+  (`_up0_kernel`), on the same affine points;
 - whole MSMs, single, batched and over two chunks, equal
   `quill_tpu.ec.curve.msm_host`;
 - E to H's plain twins equal `quill_tpu.ec.curve` adds.
@@ -205,7 +209,8 @@ def _wiring(t, monkeypatch):
         out[:, 0, 0] = v
         return out
 
-    def up0(leaves):
+    def up0(sh, idx=None):
+        leaves = sh[idx.to(torch.int64)]
         assert leaves.shape[0] % 2 == 0
         return pack(val(leaves)[0::2] + val(leaves)[1::2])
 
@@ -225,10 +230,13 @@ def _wiring(t, monkeypatch):
     monkeypatch.setattr(msm5, "tree_down_plain", down)
     rng = np.random.default_rng(t)
     v = torch.from_numpy(rng.integers(-1000, 1000, size=t).astype(np.int32))
-    leaves = torch.zeros((t, 2, fd.NLIMB), dtype=torch.int32)
-    leaves[:, 0, 0] = v
-    got = val(msm5.prefix_tree(leaves))
-    assert torch.equal(got, torch.cumsum(v, 0)[1::2].to(torch.int32))
+    sh = torch.zeros((t, 2, fd.NLIMB), dtype=torch.int32)
+    sh[:, 0, 0] = v
+    # the leaves are read through the sort's rows: here a permutation
+    idx = torch.from_numpy(rng.permutation(t).astype(np.int32))
+    got = val(msm5.prefix_tree(sh, idx))
+    want = torch.cumsum(v[idx.to(torch.int64)], 0)[1::2]
+    assert torch.equal(got, want.to(torch.int32))
 
 
 @pytest.mark.parametrize("t", [2, 6, 10, 20, 640, 1000])
@@ -299,6 +307,56 @@ def test_kernel_f_twin(pairs):
                                    [x for ab in zip(lhs, rhs) for x in ab]])
     got = msm5.tree_up0(aff)
     assert _proj_ints(got) == [_affine_ints(a.add(b)) for a, b in zip(lhs, rhs)]
+
+
+def test_kernel_f_through_index_matches_pallas():
+    """Kernel F's twin, reading its leaves through an index, against the
+    Pallas kernel it replaces in interpret mode at its smallest shape: 128
+    lanes of one leaf pair, leaf (s, m) at x[s, :, m] in the JAX layout
+    (8-bit limbs, R = 2^264, bf16).  The port is handed the same points as
+    rows of a basis in another order, and idx pairs them as the JAX kernel
+    does; P + P and P + (-P) are among the pairs."""
+    import jax.numpy as jnp
+
+    from quill_tpu.ec import msm5 as jax_msm5
+    from quill_tpu.fields import device8 as f8
+    from quill_tpu.fields.bn254 import P
+
+    m = 128
+    jax_r = 1 << f8.R_BITS
+    rng = np.random.default_rng(15)
+    pts = [G.scalar_mul(int(k)).to_affine()
+           for k in rng.integers(2, 1 << 40, size=2 * m)]
+    pts[m + 3] = pts[3]                                 # P + P
+    pts[m + 5] = curve.Affine(pts[5].x, -pts[5].y)      # P + (-P)
+    lim = f8.L
+    x = np.zeros((2, 2 * lim, m), np.float32)
+    for s in range(2):
+        row = pts[s * m:(s + 1) * m]
+        x[s, :lim] = f8.ints_to_limbs8([p.x.v * jax_r % P for p in row])
+        x[s, lim:] = f8.ints_to_limbs8([p.y.v * jax_r % P for p in row])
+    out = np.asarray(jax_msm5._up0_call(1, m)(
+        jnp.asarray(x, jnp.bfloat16))).astype(np.float64)
+    r_inv = pow(jax_r, -1, P)
+    want = []
+    for j in range(m):
+        X, Y, Z = (sum(int(out[0, c * lim + i, j]) << (8 * i)
+                       for i in range(lim)) % P * r_inv % P
+                   for c in range(3))
+        if Z == 0:
+            want.append(None)
+        else:
+            zi = pow(Z, -1, P)
+            want.append((X * zi % P, Y * zi % P))
+
+    # the basis holds the points in reverse order; idx[2j], idx[2j + 1]
+    # are the rows of lanes j of leaves 0 and 1
+    sh, _ = ed.affines_to_tensor(pts[::-1])
+    rows = 2 * m - 1 - torch.stack((torch.arange(m), torch.arange(m) + m), 1)
+    got = msm5.tree_up0(sh, rows.reshape(-1).to(torch.int32))
+    assert _proj_ints(got) == want
+    assert want[5] is None and want[3] == _affine_ints(
+        curve.Jacobian(pts[3].x, pts[3].y, curve.Fq(1)).double())
 
 
 def test_kernel_g_twin(pairs):
