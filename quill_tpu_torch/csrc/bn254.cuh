@@ -253,39 +253,23 @@ QHD G1P g1_finish(const Fe& t0, const Fe& t1, const Fe& t3, const Fe& t4,
   return r;
 }
 
-// what algorithms 7 and 8 leave for g1_finish after their first layer of
-// products
-struct G1Mid {
-  Fe t0, t1, t3, t4, y3, z3;
-};
-
-QHD G1P g1_finish(const G1Mid& m) {
-  return g1_finish(m.t0, m.t1, m.t3, m.t4, m.y3, m.z3);
-}
-
-// algorithm 7's first layer (6 products)
-QHD G1Mid g1_add_mid(const G1P& p, const G1P& q) {
-  G1Mid m;
-  m.t0 = fe_mul<FqM>(p.x, q.x);
-  m.t1 = fe_mul<FqM>(p.y, q.y);
-  Fe t2 = fe_mul<FqM>(p.z, q.z);
-  m.t3 = fe_mul<FqM>(fe_add<FqM>(p.x, p.y), fe_add<FqM>(q.x, q.y));
-  m.t3 = fe_sub<FqM>(m.t3, fe_add<FqM>(m.t0, m.t1));
-  m.t4 = fe_mul<FqM>(fe_add<FqM>(p.y, p.z), fe_add<FqM>(q.y, q.z));
-  m.t4 = fe_sub<FqM>(m.t4, fe_add<FqM>(m.t1, t2));
-  m.y3 = fe_mul<FqM>(fe_add<FqM>(p.x, p.z), fe_add<FqM>(q.x, q.z));
-  m.y3 = fe_sub<FqM>(m.y3, fe_add<FqM>(m.t0, t2));
-  m.t0 = fe_add<FqM>(fe_add<FqM>(m.t0, m.t0), m.t0);
-  t2 = fq_mul_b3(t2);
-  m.z3 = fe_add<FqM>(m.t1, t2);
-  m.t1 = fe_sub<FqM>(m.t1, t2);
-  m.y3 = fq_mul_b3(m.y3);
-  return m;
-}
-
 // algorithm 7: complete projective + projective
 QHD G1P g1_add(const G1P& p, const G1P& q) {
-  return g1_finish(g1_add_mid(p, q));
+  Fe t0 = fe_mul<FqM>(p.x, q.x);
+  Fe t1 = fe_mul<FqM>(p.y, q.y);
+  Fe t2 = fe_mul<FqM>(p.z, q.z);
+  Fe t3 = fe_mul<FqM>(fe_add<FqM>(p.x, p.y), fe_add<FqM>(q.x, q.y));
+  t3 = fe_sub<FqM>(t3, fe_add<FqM>(t0, t1));
+  Fe t4 = fe_mul<FqM>(fe_add<FqM>(p.y, p.z), fe_add<FqM>(q.y, q.z));
+  t4 = fe_sub<FqM>(t4, fe_add<FqM>(t1, t2));
+  Fe y3 = fe_mul<FqM>(fe_add<FqM>(p.x, p.z), fe_add<FqM>(q.x, q.z));
+  y3 = fe_sub<FqM>(y3, fe_add<FqM>(t0, t2));
+  t0 = fe_add<FqM>(fe_add<FqM>(t0, t0), t0);
+  t2 = fq_mul_b3(t2);
+  Fe z3 = fe_add<FqM>(t1, t2);
+  t1 = fe_sub<FqM>(t1, t2);
+  y3 = fq_mul_b3(y3);
+  return g1_finish(t0, t1, t3, t4, y3, z3);
 }
 
 // algorithm 8: complete projective + affine
@@ -304,28 +288,22 @@ QHD G1P g1_add_mixed(const G1P& p, const G1A& q) {
   return g1_finish(t0, t1, t3, t4, y3, z3);
 }
 
-// algorithm 8 with Z1 = 1, its first layer (3 products)
-QHD G1Mid g1_add_affine_mid(const G1A& p, const G1A& q) {
-  G1Mid m;
-  m.t0 = fe_mul<FqM>(p.x, q.x);
-  m.t1 = fe_mul<FqM>(p.y, q.y);
-  m.t3 = fe_mul<FqM>(fe_add<FqM>(q.x, q.y), fe_add<FqM>(p.x, p.y));
-  m.t3 = fe_sub<FqM>(m.t3, fe_add<FqM>(m.t0, m.t1));
-  m.t4 = fe_add<FqM>(q.y, p.y);
-  m.y3 = fe_add<FqM>(q.x, p.x);
-  m.t0 = fe_add<FqM>(fe_add<FqM>(m.t0, m.t0), m.t0);
+// algorithm 8 with Z1 = 1: complete affine + affine
+QHD G1P g1_add_affine(const G1A& p, const G1A& q) {
+  Fe t0 = fe_mul<FqM>(p.x, q.x);
+  Fe t1 = fe_mul<FqM>(p.y, q.y);
+  Fe t3 = fe_mul<FqM>(fe_add<FqM>(q.x, q.y), fe_add<FqM>(p.x, p.y));
+  t3 = fe_sub<FqM>(t3, fe_add<FqM>(t0, t1));
+  Fe t4 = fe_add<FqM>(q.y, p.y);
+  Fe y3 = fe_add<FqM>(q.x, p.x);
+  t0 = fe_add<FqM>(fe_add<FqM>(t0, t0), t0);
   Fe t2;
 #pragma unroll
   for (int i = 0; i < 8; ++i) t2.v[i] = FqM::b3(i);
-  m.z3 = fe_add<FqM>(m.t1, t2);
-  m.t1 = fe_sub<FqM>(m.t1, t2);
-  m.y3 = fq_mul_b3(m.y3);
-  return m;
-}
-
-// algorithm 8 with Z1 = 1: complete affine + affine
-QHD G1P g1_add_affine(const G1A& p, const G1A& q) {
-  return g1_finish(g1_add_affine_mid(p, q));
+  Fe z3 = fe_add<FqM>(t1, t2);
+  t1 = fe_sub<FqM>(t1, t2);
+  y3 = fq_mul_b3(y3);
+  return g1_finish(t0, t1, t3, t4, y3, z3);
 }
 
 // algorithm 9: complete projective doubling, a = 0.  6 products and 2

@@ -534,30 +534,18 @@ void q_tree_down_blocked(int L, int lanes, const uint32_t* p,
   }
 }
 
-// Kernels F and K (csrc/msm5.cu: tree_leaf_kernel<L>) emulated block by
-// block: the gather, each phase's items in order by leaf_add, and the
-// stores (for L = 2 level 1's between the phases).  sh: (rows, 16); idx:
-// (2k,) rows or NULL; o1: (k, 24); o2: (ceil(k / 2), 24) for L = 2.
-void q_tree_leaf_blocked(int L, const uint32_t* sh, const int* idx, long k,
-                         uint32_t* o1, uint32_t* o2) {
-  const int P = leaf_span(L);
-  std::vector<uint32_t> s(leaf_words(P));
-  for (long long b = 0; b < (k + P - 1) / P; ++b) {
-    for (int i = 0; i < 8 * P; ++i) leaf_load(L, P, sh, idx, k, b, i, s.data());
-    for (int phase = 1; phase <= L; ++phase) {
-      if (phase == 2)
-        for (int i = 0; i < leaf_store_pieces(P, 1); ++i)
-          leaf_store(P, 1, o1, k, b, i, s.data());
-      for (int j = 0; j < P >> (phase - 1); ++j) {
-        if (!leaf_item_live(P, k, b, phase, j)) continue;
-        G1P p, q;
-        leaf_item_operands(s.data(), phase, j, &p, &q);
-        leaf_item_store(s.data(), phase, j, leaf_add(p, q, phase == 1));
-      }
-    }
-    for (int i = 0; i < leaf_store_pieces(P, L); ++i)
-      leaf_store(P, L, L == 1 ? o1 : o2, L == 1 ? k : (k + 1) >> 1, b, i,
-                 s.data());
+// Kernels F and K (csrc/msm5.cu: tree_leaf_kernel) emulated block by
+// block: the gather, each live pair's add in turn, the stores.  sh: (rows,
+// 16); idx: (2k,) rows or NULL; out: (k, 24).
+void q_tree_leaf_blocked(const uint32_t* sh, const int* idx, long k,
+                         uint32_t* out) {
+  std::vector<uint32_t> s(leaf_words());
+  for (long long b = 0; b < (k + LEAF_NT - 1) / LEAF_NT; ++b) {
+    for (int i = 0; i < 8 * LEAF_NT; ++i)
+      leaf_load(sh, idx, k, b, i, s.data());
+    for (int j = 0; j < LEAF_NT && b * LEAF_NT + j < k; ++j)
+      leaf_pair(s.data(), j);
+    for (int i = 0; i < 6 * LEAF_NT; ++i) leaf_store(out, k, b, i, s.data());
   }
 }
 

@@ -25,8 +25,7 @@
 //                products instead of 12), projective out.  The TPU kernels
 //                read leaf arrays that an XLA gather had written first; here
 //                the kernel gathers the rows of the shifted basis itself, so
-//                no leaf array is written.  Optionally level 2 in the same
-//                launch (L = 2).
+//                no leaf array is written.
 // G  tree_up     replaces quill_tpu/ec/msm3.py:258 _up_kernel: the up-sweep,
 //                one level (L = 1) or two (L = 2) a launch.
 //    tree_top    replaces the fused top levels (quill_tpu/ec/msm3.py:361
@@ -132,44 +131,24 @@ query_walk_kernel(const long long* __restrict__ cnt, long long nq,
 // reduce mode.
 #define TREE_MINB 2
 
-// F and K, the affine leaf level: block b gathers its pairs' leaves through
-// idx into shared memory (cp.async), adds each pair in its slot, one add a
-// thread, and writes the pair sums out (csrc/tree.cuh has the maps).  L = 2
-// also adds level 2 in the slots, after level 1 is written out, in the same
-// loop, so that the kernel holds one copy of g1_finish.
-template <int L>
+// F and K, the affine leaf level: block b gathers its LEAF_NT pairs' leaves
+// through idx into shared memory (cp.async), adds each pair in its slot,
+// one add a thread, and writes the pair sums out (csrc/tree.cuh has the
+// maps).  36,864 bytes of slots a block.
 __global__ void __launch_bounds__(LEAF_NT, TREE_MINB)
 tree_leaf_kernel(const uint32_t* __restrict__ sh, const int* __restrict__ idx,
-                 long long k, uint32_t* __restrict__ o1,
-                 uint32_t* __restrict__ o2) {
-  constexpr int P = leaf_span(L);
-  extern __shared__ uint4 tree_sh[];
-  uint32_t* s = reinterpret_cast<uint32_t*>(tree_sh);
+                 long long k, uint32_t* __restrict__ out) {
+  __shared__ uint4 leaf_sh[leaf_words() / 4];
+  uint32_t* s = reinterpret_cast<uint32_t*>(leaf_sh);
   const long long b = blockIdx.x;
-  for (int i = threadIdx.x; i < 8 * P; i += LEAF_NT)
-    leaf_load(L, P, sh, idx, k, b, i, s);
+  for (int i = threadIdx.x; i < 8 * LEAF_NT; i += LEAF_NT)
+    leaf_load(sh, idx, k, b, i, s);
   leaf_wait();
   __syncthreads();
-  constexpr int R1 = P / LEAF_NT, R = L == 2 ? R1 + 1 : R1;
-#pragma unroll 1
-  for (int it = 0; it < R; ++it) {
-    const int phase = it < R1 ? 1 : 2;
-    if (it == R1) {
-      // level 1 out before level 2 is summed over it
-      for (int i = threadIdx.x; i < leaf_store_pieces(P, 1); i += LEAF_NT)
-        leaf_store(P, 1, o1, k, b, i, s);
-      __syncthreads();
-    }
-    const int j = (phase == 1 ? it : it - R1) * LEAF_NT + threadIdx.x;
-    if (leaf_item_live(P, k, b, phase, j)) {
-      G1P p, q;
-      leaf_item_operands(s, phase, j, &p, &q);
-      leaf_item_store(s, phase, j, leaf_add(p, q, phase == 1));
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < leaf_store_pieces(P, L); i += LEAF_NT)
-    leaf_store(P, L, L == 1 ? o1 : o2, L == 1 ? k : (k + 1) >> 1, b, i, s);
+  if (b * LEAF_NT + threadIdx.x < k) leaf_pair(s, threadIdx.x);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 6 * LEAF_NT; i += LEAF_NT)
+    leaf_store(out, k, b, i, s);
 }
 
 // G: block b stages level l's rows [S b, S (b + 1)), adds level l + 1's
@@ -423,19 +402,6 @@ static int tree_launch_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int L>
-static int tree_leaf_launch(const void* sh, const void* idx, long long k,
-                            void* o1, void* o2, void* stream) {
-  constexpr int P = leaf_span(L);
-  const int bytes = 4 * leaf_words(P);
-  static int set = tree_launch_smem(tree_leaf_kernel<L>, bytes);
-  if (set != 0) return set;
-  tree_leaf_kernel<L><<<(unsigned)((k + P - 1) / P), LEAF_NT, bytes,
-                        (cudaStream_t)stream>>>(
-      (const uint32_t*)sh, (const int*)idx, k, (uint32_t*)o1, (uint32_t*)o2);
-  return (int)cudaGetLastError();
-}
-
 template <int L, bool LANES>
 static int tree_up_launch(const void* x, long long m, void* o1, void* o2,
                           void* stream) {
@@ -481,15 +447,15 @@ static int tree_top_launch(const void* x, int w, long long blocks, void* out,
 }
 
 // F and K: sh: (rows, 16) affine words, 16-byte aligned; idx: (2k,) int32
-// rows of sh, each < rows, or NULL for rows 0 .. 2k - 1; o1: (k, 24), o1[j]
-// = sh[idx[2j]] + sh[idx[2j + 1]]; levels 2: also o2: (ceil(k / 2), 24),
-// level 1 padded with the identity
+// rows of sh, each < rows, or NULL for rows 0 .. 2k - 1; out: (k, 24),
+// out[j] = sh[idx[2j]] + sh[idx[2j + 1]]
 extern "C" int quill_tree_leaf(const void* sh, const void* idx, long long k,
-                               int levels, void* o1, void* o2, void* stream) {
+                               void* out, void* stream) {
   if (k <= 0) return 0;
-  if (levels == 1) return tree_leaf_launch<1>(sh, idx, k, o1, o2, stream);
-  if (levels == 2) return tree_leaf_launch<2>(sh, idx, k, o1, o2, stream);
-  return (int)cudaErrorInvalidValue;
+  tree_leaf_kernel<<<(unsigned)((k + LEAF_NT - 1) / LEAF_NT), LEAF_NT, 0,
+                     (cudaStream_t)stream>>>(
+      (const uint32_t*)sh, (const int*)idx, k, (uint32_t*)out);
+  return (int)cudaGetLastError();
 }
 
 // G, one level: x: (2k, 24); out: (k, 24)

@@ -41,8 +41,10 @@
 // neighbouring threads on the four 16-byte pieces of one 64-byte row, so
 // that a random gather still uses every sector it fetches whole; then one
 // add a thread in the slots, and the sums out as coalesced pieces.  Blocks
-// of 256 threads, 2 an SM, as G's.  L = 2 adds level 2 in the same launch
-// with one copy of g1_finish (leaf_add).
+// of 256 threads, 2 an SM, as G's.  Level 2 in the same launch, with one
+// copy of g1_finish shared by the two adds, was tried and dropped: on an
+// H100 the whole prefix tree took 4.29-4.31 ms with it against 3.88-3.90
+// ms without, a v6 MSM 8.9-9.2 ms against 8.8 (PERF.md, PR 12).
 //
 // The fused top: one block holds a level of at most TREE_TOP points and
 // every level above it in shared memory, runs the up-sweep to one point
@@ -129,9 +131,13 @@ QHD Fe lane_mul1(const G1P& p, const G1P& q, int g) {
   return fe_mul<FqM>(lane_factor1(p, g), lane_factor1(q, g));
 }
 
+struct LaneMid {
+  Fe t0, t1, t3, t4, y3, z3;
+};
+
 // g1_add between its layers, from the six layer-1 products
-QHD G1Mid lane_mid(const Fe* P) {
-  G1Mid m;
+QHD LaneMid lane_mid(const Fe* P) {
+  LaneMid m;
   m.t3 = fe_sub<FqM>(P[3], fe_add<FqM>(P[0], P[1]));
   m.t4 = fe_sub<FqM>(P[4], fe_add<FqM>(P[1], P[2]));
   const Fe y3 = fe_sub<FqM>(P[5], fe_add<FqM>(P[0], P[2]));
@@ -144,7 +150,7 @@ QHD G1Mid lane_mid(const Fe* P) {
 }
 
 // layer 2 (g1_finish), lane g: t4 y3, t3 t1, y3 t0, t1 z3, t0 t3, z3 t4
-QHD Fe lane_mul2(const G1Mid& m, int g) {
+QHD Fe lane_mul2(const LaneMid& m, int g) {
   const Fe a = g == 0 ? m.t4 : g == 1 ? m.t3 : g == 2 ? m.y3
              : g == 3 ? m.t1 : g == 4 ? m.t0 : m.z3;
   const Fe b = g == 0 ? m.y3 : g == 1 ? m.t1 : g == 2 ? m.t0
@@ -164,7 +170,7 @@ QHD G1P lane_finish(const Fe* R) {
 QHD G1P g1_add_split(const G1P& p, const G1P& q) {
   Fe P[6];
   for (int g = 0; g < 6; ++g) P[g] = lane_mul1(p, q, g);
-  const G1Mid m = lane_mid(P);
+  const LaneMid m = lane_mid(P);
   for (int g = 0; g < 6; ++g) P[g] = lane_mul2(m, g);
   return lane_finish(P);
 }
@@ -180,7 +186,7 @@ __device__ __forceinline__ G1P g1_add_lanes(const G1P& p, const G1P& q,
 #pragma unroll
   for (int k = 0; k < 6; ++k) P[k] = fe_load16(xs + 8 * k);
   __syncwarp();
-  const G1Mid m = lane_mid(P);
+  const LaneMid m = lane_mid(P);
   fe_store16(xs + 8 * g, lane_mul2(m, g));
   __syncwarp();
 #pragma unroll
@@ -387,16 +393,13 @@ QHD void leaf_wait() {
 
 // A block's slots: pair r's two affine leaves (16 words each) at LEAF_SLOT
 // r words, 4 words of padding after them, so that a quarter warp's 16-byte
-// accesses to 8 slots fall on distinct banks.  A pair's sum is stored over
-// its leaves (24 of the slot's words).  L = 1: P = LEAF_NT pairs a block,
-// one add a thread.  L = 2 (level 2 too): P = 2 LEAF_NT pairs, two rounds
-// of leaf adds, then level 2's P / 2 adds.
+// accesses to 8 slots fall on distinct banks.  A block takes LEAF_NT
+// pairs, one add a thread, and stores each sum over its pair's leaves (24
+// of the slot's words).
 #define LEAF_NT 256
 #define LEAF_SLOT 36
 
-constexpr QHD int leaf_span(int L) { return LEAF_NT << (L - 1); }
-
-QHD int leaf_words(int P) { return LEAF_SLOT * P; }
+constexpr QHD int leaf_words() { return LEAF_SLOT * LEAF_NT; }
 
 QHD uint32_t* leaf_slot(uint32_t* sh, int r) { return sh + LEAF_SLOT * r; }
 
@@ -410,72 +413,40 @@ QHD long long leaf_row(const int* idx, long long g, int e) {
   return idx != nullptr ? (long long)idx[2 * g + e] : 2 * g + e;
 }
 
-// The gather, piece i (0 .. 8 P) of block b: pair r = i / 8, its leaf e =
-// i / 4 % 2, 16-byte quarter i % 4, from the basis row leaf_row(idx, P b +
-// r, e) into slot r's words 16 e + 4 (i % 4): four neighbouring threads
-// copy one 64-byte row, so every sector fetched is used whole.  A pair at
-// or past k loads nothing (L = 1) or the identity as its sum (L = 2: the
-// pad of an odd level 1).
-QHD void leaf_load(int L, int P, const uint32_t* sh, const int* idx,
-                   long long k, long long b, int i, uint32_t* s) {
+// The gather, piece i (0 .. 8 LEAF_NT) of block b: pair r = i / 8, its
+// leaf e = i / 4 % 2, 16-byte quarter i % 4, from the basis row
+// leaf_row(idx, LEAF_NT b + r, e) into slot r's words 16 e + 4 (i % 4):
+// four neighbouring threads copy one 64-byte row, so every sector fetched
+// is used whole.  Pairs at or past k load nothing.
+QHD void leaf_load(const uint32_t* sh, const int* idx, long long k,
+                   long long b, int i, uint32_t* s) {
   const int r = i >> 3, c = i & 7;
-  const long long g = b * P + r;
-  uint32_t* slot = leaf_slot(s, r);
+  const long long g = b * LEAF_NT + r;
   if (g < k)
-    piece_copy_async(slot + 4 * c,
+    piece_copy_async(leaf_slot(s, r) + 4 * c,
                      sh + 16 * leaf_row(idx, g, c >> 2) + 4 * (c & 3));
-  else if (L == 2 && c < 6)
-    piece_identity(slot + 4 * c, c);
 }
 
-// Phase 1, item j: pair j's leaves, as points with Z = 1, summed into slot
-// j.  Phase 2 (L = 2), item j: slots 2j and 2j + 1 (level 1's nodes)
-// summed into slot 2j.  An item whose first input lies at or past k is
-// skipped.
-QHD bool leaf_item_live(int P, long long k, long long b, int phase, int j) {
-  return b * P + ((long long)j << (phase - 1)) < k;
+// The thread body: pair j of the block, live while LEAF_NT b + j < k,
+// summed by g1_add_affine (9 products) into its slot.
+QHD void leaf_pair(uint32_t* s, int j) {
+  uint32_t* a = leaf_slot(s, j);
+  G1A p, q;
+  p.x = fe_load16(a);
+  p.y = fe_load16(a + 8);
+  q.x = fe_load16(a + 16);
+  q.y = fe_load16(a + 24);
+  pt_st(a, g1_add_affine(p, q));
 }
 
-QHD void leaf_item_operands(const uint32_t* s, int phase, int j, G1P* p,
-                            G1P* q) {
-  if (phase == 1) {
-    const uint32_t* a = leaf_slot(s, j);
-    p->x = fe_load16(a);
-    p->y = fe_load16(a + 8);
-    q->x = fe_load16(a + 16);
-    q->y = fe_load16(a + 24);
-    p->z = q->z = fe_one<FqM>();
-  } else {
-    *p = pt_ld(leaf_slot(s, 2 * j));
-    *q = pt_ld(leaf_slot(s, 2 * j + 1));
-  }
-}
-
-QHD void leaf_item_store(uint32_t* s, int phase, int j, const G1P& r) {
-  pt_st(leaf_slot(s, j << (phase - 1)), r);
-}
-
-// The item's add: g1_add_affine on a leaf pair (Z not read), g1_add on two
-// level-1 nodes.  Only their first layers branch; g1_finish, 6 of the 9 and
-// 12 products, is one copy.  The triples are those of the two adds.
-QHD G1P leaf_add(const G1P& p, const G1P& q, bool affine) {
-  const G1Mid m = affine ? g1_add_affine_mid(G1A{p.x, p.y}, G1A{q.x, q.y})
-                         : g1_add_mid(p, q);
-  return g1_finish(m);
-}
-
-// The store, piece i of block b's nodes of level s (1: its P pair sums,
-// from slot r; 2: its P / 2 level-2 nodes, from slot 2r): out[(P >> (s -
-// 1)) b + r], below `rows`.  Pieces 0 .. 6 (P >> (s - 1)).
-QHD int leaf_store_pieces(int P, int s) { return 6 * (P >> (s - 1)); }
-
-QHD void leaf_store(int P, int s, uint32_t* out, long long rows, long long b,
-                    int i, const uint32_t* sh) {
+// The store, piece i (0 .. 6 LEAF_NT) of block b: out[LEAF_NT b + i / 6]'s
+// 16-byte piece i % 6 from slot i / 6, below k.
+QHD void leaf_store(uint32_t* out, long long k, long long b, int i,
+                    const uint32_t* s) {
   const int r = i / 6, c = i % 6;
-  const long long row = b * (P >> (s - 1)) + r;
-  if (row < rows)
-    piece_copy(out + PT_WORDS * row + 4 * c,
-               leaf_slot(sh, r << (s - 1)) + 4 * c);
+  const long long row = b * LEAF_NT + r;
+  if (row < k)
+    piece_copy(out + PT_WORDS * row + 4 * c, leaf_slot(s, r) + 4 * c);
 }
 
 // ---------------------------------------------------------------------------

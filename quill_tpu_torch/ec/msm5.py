@@ -90,7 +90,7 @@ def _fns():
             lib, "quill_shifted_basis",
             [vp, vp, i64, i64, build.I32, build.I32, vp, vp, vp])
         _FN["leaf"] = build.bind(lib, "quill_tree_leaf",
-                                 [vp, vp, i64, build.I32, vp, vp, vp])
+                                 [vp, vp, i64, vp, vp])
         _FN["up"] = build.bind(lib, "quill_tree_up", [vp, i64, vp, vp])
         _FN["up2"] = build.bind(lib, "quill_tree_up2",
                                 [vp, i64, vp, vp, vp])
@@ -191,14 +191,13 @@ def pt_dbl_plain(p, k: int = 1):
 # ---------------------------------------------------------------------------
 
 
-def leaf_level(sh, idx, counter: str, levels: int = 1):
+def leaf_level(sh, idx, counter: str):
     """Kernels F and K, one kernel: an (r, 2, 8) affine basis and (2k,)
     int32 rows of it (None: rows 0 .. 2k - 1, contiguous leaves) -> (k, 3,
     8) pair sums o[j] = sh[idx[2j]] + sh[idx[2j + 1]] (9 products, Z = 1),
-    gathered in the kernel; levels 2: (level 1, level 2), level 2 (ceil(k /
-    2), 3, 8) the pairs of level 1 padded with the identity.  `counter`
-    names the caller's launch count.  Every idx entry must be below r: the
-    kernel does not check, and a row out of range faults on the card."""
+    gathered in the kernel.  `counter` names the caller's launch count.
+    Every idx entry must be below r: the kernel does not check, and a row
+    out of range faults on the card."""
     _check_points(sh, 2, "sh")
     _require(sh.data_ptr() % 16 == 0, "sh must be 16-byte aligned")
     if idx is None:
@@ -210,16 +209,12 @@ def leaf_level(sh, idx, counter: str, levels: int = 1):
                  and idx.shape[0] % 2 == 0,
                  "idx must be a contiguous (2k,) int32 tensor on CUDA")
         k = idx.shape[0] // 2
-    _require(levels in (1, 2), "one or two levels")
-    o1 = _out(k, sh)
-    o2 = _out(_half(k), sh) if levels == 2 else None
+    out = _out(k, sh)
     rc = _fns()["leaf"](sh.data_ptr(), None if idx is None else idx.data_ptr(),
-                        k, levels, o1.data_ptr(),
-                        None if o2 is None else o2.data_ptr(),
-                        build.stream_ptr())
+                        k, out.data_ptr(), build.stream_ptr())
     build.check(rc, counter)
     build.count(counter)
-    return o1 if levels == 1 else (o1, o2)
+    return out
 
 
 def tree_up0(sh, idx=None):

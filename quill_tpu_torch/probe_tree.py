@@ -3,7 +3,7 @@
 split into their launches on the card.
 
     python quill_tpu_torch/probe_tree.py [--root CHECKOUT] [--ptxas]
-        [--reps N] [--trial]
+        [--reps N]
 
 `--root` imports `quill_tpu_torch` from another checkout (default: this
 one), so that one command can measure two trees in turn.  A checkout whose
@@ -28,12 +28,7 @@ collect take the leaves.
    `msm_batch` call, its peak device memory and its launches by kernel;
 4. v6 at the 2^16-row prove's largest MSM, 2^18 points of the CRS: kernel
    K on its 2^21 leaf pairs (CUDA events) and one whole v6 MSM (the host
-   clock, synchronised);
-5. with `--trial` (this tree's API only), the leaf level two levels a
-   launch (L = 2): the launch alone at F's and K's shapes, the whole
-   prefix tree with it (one-level H for the finest level where the levels'
-   parity asks, held to `prefix_tree` with `torch.equal`) and a v6 MSM
-   with it (held to the one-level MSM).
+   clock, synchronised).
 
 The last line is one JSON object with the card's name and power limit.
 """
@@ -226,12 +221,9 @@ def msm_batch_call(b: Batch, reps: int) -> dict:
                                    if v != before[k]})
 
 
-def v6(dev, reps: int, trial: bool) -> dict:
-    """Kernel K and a whole v6 MSM at V6_POINTS points; with `trial`, both
-    with the leaf level two levels a launch."""
-    import torch
-
-    from quill_tpu_torch.ec import msm5, msm6
+def v6(dev, reps: int) -> dict:
+    """Kernel K and a whole v6 MSM at V6_POINTS points."""
+    from quill_tpu_torch.ec import msm6
     from quill_tpu_torch.fields import device as fd
     from quill_tpu_torch.probe_msm import scalars
     from quill_tpu_torch.probe_shifted import crs
@@ -241,75 +233,9 @@ def v6(dev, reps: int, trial: bool) -> dict:
     sh = msm6.shifted(bs, V6_POINTS)
     flat = sh.reshape(-1, 2, fd.NLIMB)
     _, idx = msm6.sort_keys(fd.from_mont(s, fd.FR), bs.inf, sh.shape[1])
-    out = dict(pairs=idx.shape[0] // 2,
-               k_ms=_events(lambda: msm6.level0(flat, idx), reps),
-               msm_ms=_wall(lambda: msm6.msm(bs, s), reps))
-    if trial:
-        out["k_two_levels_ms"] = _events(
-            lambda: msm5.leaf_level(flat, idx, "msm6_level0", 2), reps)
-        want = msm6.msm(bs, s)
-        one, two = msm6.tree(flat, idx), tree_two_leaf_levels(flat, idx)
-        if len(one) != len(two) or not all(
-                torch.equal(a, c) for a, c in zip(one, two)):
-            raise SystemExit("probe_tree: v6's levels with L = 2 differ")
-        del one, two
-        one = msm6.tree
-        msm6.tree = tree_two_leaf_levels
-        try:
-            if msm6.msm(bs, s) != want:
-                raise SystemExit("probe_tree: v6 with L = 2 differs")
-            out["msm_two_leaf_levels_ms"] = _wall(lambda: msm6.msm(bs, s),
-                                                  reps)
-        finally:
-            msm6.tree = one
-    return out
-
-
-def tree_two_leaf_levels(sh, idx) -> list:
-    """`msm6.tree` with the leaf level two levels a launch."""
-    from quill_tpu_torch.ec import msm5, msm6
-
-    levels = list(msm5.leaf_level(sh, idx, "msm6_level0", 2))
-    while levels[-1].shape[0] > msm6.MIN_TOP:
-        if levels[-1].shape[0] > 2 * msm6.MIN_TOP:
-            levels += msm5.tree_up2(levels[-1])
-        else:
-            levels.append(msm5.tree_up(levels[-1]))
-    return levels
-
-
-def prefix_tree_two_leaf_levels(sh, idx):
-    """`msm5.prefix_tree` with the leaf level two levels a launch: the
-    levels' count changes parity, so where the down-sweep's two-level
-    launches end at level 2, one-level H takes level 1."""
-    from quill_tpu_torch.ec import msm5
-
-    levels = list(msm5.leaf_level(sh, idx, "msm5_tree_up0", 2))
-    while levels[-1].shape[0] > msm5.TOP:
-        levels += msm5.tree_up2(levels[-1])
-    p = msm5.tree_top(levels[-1])
-    k = len(levels) - 3
-    while k >= 0:
-        p = msm5.tree_down2(p, levels[k + 1], levels[k])
-        k -= 2
-    if k == -1:
-        p = msm5.tree_down(p, msm5._pad(levels[0]))[:levels[0].shape[0]]
-    return p
-
-
-def trial_small(b: Batch, reps: int) -> dict:
-    import torch
-
-    from quill_tpu_torch.ec import msm5
-
-    got = prefix_tree_two_leaf_levels(*b.leaf_args)
-    if not torch.equal(got, msm5.prefix_tree(*b.leaf_args)):
-        raise SystemExit("probe_tree: the tree with L = 2 differs")
-    return dict(
-        f_two_levels_ms=_events(lambda: msm5.leaf_level(
-            *b.leaf_args, "msm5_tree_up0", 2), reps),
-        whole_two_leaf_levels_ms=_events(
-            lambda: prefix_tree_two_leaf_levels(*b.leaf_args), reps))
+    return dict(pairs=idx.shape[0] // 2,
+                k_ms=_events(lambda: msm6.level0(flat, idx), reps),
+                msm_ms=_wall(lambda: msm6.msm(bs, s), reps))
 
 
 def main():
@@ -317,7 +243,6 @@ def main():
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--trial", action="store_true")
     args = ap.parse_args()
     sys.path[0] = os.path.abspath(args.root)
     import torch
@@ -351,9 +276,6 @@ def main():
     del x2
     res["tree"] = tree_parts(b.leaf_args, reps)
     print(f"tree: {json.dumps(res['tree'])}", flush=True)
-    if args.trial:
-        res["trial"] = trial_small(b, reps)
-        print(f"trial: {json.dumps(res['trial'])}", flush=True)
     i1 = msm5.prefix_tree(*b.leaf_args)
     res["collect_ms"] = _events(lambda: msm5.collect(
         b.keys, b.sorted, i1, b.sh, NB), reps)
@@ -364,7 +286,7 @@ def main():
              "msm_batch_ms", "msm_batch_peak_mb", "launches_per_call")
     print(f"collect: {json.dumps({k: res[k] for k in keys_})}", flush=True)
     del b
-    res["v6"] = v6(dev, reps, args.trial)
+    res["v6"] = v6(dev, reps)
     print(f"v6: {json.dumps(res['v6'])}", flush=True)
     print(json.dumps(res))
 

@@ -615,13 +615,12 @@ def test_kernel_k_matches_plain(dev):
     assert msm6.msm(basis, s) == M.msm(basis, s) == curve.msm_host(pts, ints)
 
 
-@pytest.mark.parametrize("levels", [1, 2])
 @pytest.mark.parametrize("k", [1, 2, 3, 255, 256, 257, 513, 5000])
-def test_leaf_level_matches_plain(dev, k, levels):
-    """Kernels F and K's one kernel at 1 to 5,000 pairs, one and two levels
-    a launch: through a random index of a 600-row basis (P + P and P + (-P)
-    among the pairs) and on contiguous leaves (no index), each launch
-    counted once under its caller's name."""
+def test_leaf_level_matches_plain(dev, k):
+    """Kernels F and K's one kernel at 1 to 5,000 pairs: through a random
+    index of a 600-row basis (P + P and P + (-P) among the pairs) and on
+    contiguous leaves (no index), each launch counted once under its
+    caller's name."""
     from quill_tpu_torch.ec import msm5, msm6
 
     g = curve.g1_generator()
@@ -635,11 +634,7 @@ def test_leaf_level_matches_plain(dev, k, levels):
         idx[3] = idx[2]
     want = msm5.tree_up0_plain(sh, idx)
     before = dict(build.LAUNCHES)
-    got = msm5.leaf_level(sh, idx, "msm5_tree_up0", levels)
-    o1 = got if levels == 1 else got[0]
-    assert torch.equal(o1, want)
-    if levels == 2:
-        assert torch.equal(got[1], msm5.tree_up_plain(msm5._pad(want)))
+    assert torch.equal(msm5.tree_up0(sh, idx), want)
     assert torch.equal(msm6.level0(sh, idx), want)
     leaves = sh[idx.long()].contiguous()
     assert torch.equal(msm5.tree_up0(leaves), want)

@@ -6,8 +6,7 @@ add) with `torch.equal`.
 
 The kernel copies each block's pairs of leaves into shared memory through
 the index (or rows 0 .. 2k - 1 without one), adds each pair in its slot
-and writes the sums out; with two levels (L = 2) it also adds level 2 in
-the slots, level 1 padded with the identity.  The emulation runs the same
+and writes the sums out.  The emulation runs the same
 maps and bodies block by block, so widths of 1, 2 and odd numbers of
 pairs, one block's span and more, the identity index, the sorts' real
 indices and pairs of equal and opposite points (the v6 sort's clamped and
@@ -42,7 +41,7 @@ def lib():
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     lib = ctypes.CDLL(str(build.build_host()))
-    lib.q_tree_leaf_blocked.argtypes = [INT, VP, VP, LONG, VP, VP]
+    lib.q_tree_leaf_blocked.argtypes = [VP, VP, LONG, VP]
     lib.q_tree_leaf_blocked.restype = None
     lib.q_leaf_nt.restype = INT
     return lib
@@ -61,13 +60,12 @@ def _basis():
     return xy
 
 
-def _leaf(lib, L, sh, idx, k):
-    o1 = torch.zeros((k, 3, fd.NLIMB), dtype=torch.int32)
-    o2 = torch.zeros(((k + 1) // 2, 3, fd.NLIMB), dtype=torch.int32)
-    lib.q_tree_leaf_blocked(L, sh.data_ptr(),
+def _leaf(lib, sh, idx, k):
+    out = torch.zeros((k, 3, fd.NLIMB), dtype=torch.int32)
+    lib.q_tree_leaf_blocked(sh.data_ptr(),
                             None if idx is None else idx.data_ptr(), k,
-                            o1.data_ptr(), o2.data_ptr())
-    return o1, o2
+                            out.data_ptr())
+    return out
 
 
 def _index(k, seed):
@@ -85,21 +83,22 @@ def test_leaf_nt_is_tree_cuh(lib):
     assert lib.q_leaf_nt() == NT
 
 
-@pytest.mark.parametrize("k", (1, 2, 3, 7, NT - 1, NT, NT + 1, 2 * NT + 5))
+@pytest.mark.parametrize("k", (1, 2, 3, 7, NT - 1, NT, NT + 1, 2 * NT,
+                               2 * NT + 5, 4 * NT + 6))
 def test_one_level_through_an_index(lib, k):
     sh = _basis()
     idx = _index(k, 10 + k)
-    o1, _ = _leaf(lib, 1, sh, idx, k)
+    o1 = _leaf(lib, sh, idx, k)
     assert torch.equal(o1, msm5.tree_up0_plain(sh, idx))
     assert torch.equal(o1, msm6.level0_plain(sh, idx))
 
 
-@pytest.mark.parametrize("k", (1, 2, 5, NT, NT + 3))
+@pytest.mark.parametrize("k", (1, 2, 5, NT, NT + 3, 2 * NT + 1))
 def test_one_level_identity_index(lib, k):
     """No index: the 2k leaves are rows 0 .. 2k - 1 (the contiguous form
     that `prefix_tree_chain` and the tests use)."""
     leaves = _basis()[_index(k, 20 + k).to(torch.int64)].contiguous()
-    o1, _ = _leaf(lib, 1, leaves, None, k)
+    o1 = _leaf(lib, leaves, None, k)
     assert torch.equal(o1, msm5.tree_up0_plain(leaves))
 
 
@@ -109,25 +108,13 @@ def test_equal_and_opposite_pairs(lib):
     sh = _basis()
     idx = torch.tensor([3, 3, 5, 5 + POOL, POOL + 7, 7, 9, 9],
                        dtype=torch.int32)
-    o1, _ = _leaf(lib, 1, sh, idx, 4)
+    o1 = _leaf(lib, sh, idx, 4)
     assert torch.equal(o1, msm5.tree_up0_plain(sh, idx))
     pts = ed.proj_to_jacobians(o1)
     assert pts[1].is_identity() and pts[2].is_identity()
     p3 = ed.proj_to_jacobians(
         torch.cat((sh[3:4], fd.const(1, fd.FQ, "cpu").expand(1, 1, 8)), 1))
     assert pts[0] == p3[0].double()
-
-
-@pytest.mark.parametrize("k", (1, 2, 3, 2 * NT - 1, 2 * NT, 2 * NT + 1,
-                               4 * NT + 6))
-def test_two_levels(lib, k):
-    """L = 2: level 1 as at L = 1 and level 2 the one-level twin of kernel
-    G on level 1 padded with the identity."""
-    sh = _basis()
-    idx = _index(k, 30 + k)
-    o1, o2 = _leaf(lib, 2, sh, idx, k)
-    assert torch.equal(o1, msm5.tree_up0_plain(sh, idx))
-    assert torch.equal(o2, msm5.tree_up_plain(msm5._pad(o1)))
 
 
 def _rows(r):
@@ -151,7 +138,7 @@ def test_small_route_sort_index(lib):
     assert idx.dtype == torch.int32 and idx.shape == (2 * msm5.NWIN * 9,)
     assert int(idx.max()) < sh.shape[0]
     k = idx.shape[0] // 2
-    o1, _ = _leaf(lib, 1, sh, idx, k)
+    o1 = _leaf(lib, sh, idx, k)
     assert torch.equal(o1, msm5.tree_up0_plain(sh, idx))
 
 
@@ -163,8 +150,4 @@ def test_v6_sort_index(lib):
     assert idx.shape == (msm6.NWIN * 32,)
     sh = _rows(msm6.NWIN * 20)
     k = idx.shape[0] // 2
-    o1, _ = _leaf(lib, 1, sh, idx, k)
-    assert torch.equal(o1, msm6.level0_plain(sh, idx))
-    l1, l2 = _leaf(lib, 2, sh, idx, k)
-    assert torch.equal(l1, o1)
-    assert torch.equal(l2, msm5.tree_up_plain(msm5._pad(o1)))
+    assert torch.equal(_leaf(lib, sh, idx, k), msm6.level0_plain(sh, idx))
