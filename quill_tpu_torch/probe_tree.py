@@ -3,7 +3,7 @@
 split into their launches on the card.
 
     python quill_tpu_torch/probe_tree.py [--root CHECKOUT] [--ptxas]
-        [--reps N]
+        [--reps N] [--prove REPS]
 
 `--root` imports `quill_tpu_torch` from another checkout (default: this
 one), so that one command can measure two trees in turn.  A checkout whose
@@ -28,7 +28,11 @@ collect take the leaves.
    `msm_batch` call, its peak device memory and its launches by kernel;
 4. v6 at the 2^16-row prove's largest MSM, 2^18 points of the CRS: kernel
    K on its 2^21 leaf pairs (CUDA events) and one whole v6 MSM (the host
-   clock, synchronised).
+   clock, synchronised);
+5. with `--prove REPS`, chip_smoke.py's 2^16-row prove on the default
+   engine and on `msm_impl="6"`, each REPS times after one warm-up prove
+   (the host clock, synchronised).  It needs only the engine's API, so it
+   runs the same on any checkout.
 
 The last line is one JSON object with the card's name and power limit.
 """
@@ -238,11 +242,42 @@ def v6(dev, reps: int) -> dict:
                 msm_ms=_wall(lambda: msm6.msm(bs, s), reps))
 
 
+def prove(reps: int) -> dict:
+    """chip_smoke.py's 2^16-row prove, warm, on the default engine and on
+    v6: {impl: [seconds, ...]}."""
+    import torch
+
+    from chip_smoke import COLS, LOG2_ROWS, fibonacci
+    from quill_tpu_torch.engine.device import TorchEngine
+    from quill_tpu_torch.pcs.mlpcs import MultilinearPCS
+    from quill_tpu_torch.pcs.setup import setup
+    from quill_tpu_torch.proof.hyperplonk import HyperPlonk, TraceWitness
+
+    rows = 1 << LOG2_ROWS
+    circuit, witness = fibonacci(rows)
+    out = {}
+    for impl in ("7", "6"):
+        engine = TorchEngine("cuda", msm_impl=impl)
+        hp = HyperPlonk.preprocess(
+            [circuit], MultilinearPCS(setup(engine, COLS * rows)))
+        out[impl] = []
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hp.prove([TraceWitness(columns=witness)])
+            torch.cuda.synchronize()
+            if i:
+                out[impl].append(time.perf_counter() - t0)
+        del hp, engine
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--prove", type=int, default=0)
     args = ap.parse_args()
     sys.path[0] = os.path.abspath(args.root)
     import torch
@@ -288,6 +323,9 @@ def main():
     del b
     res["v6"] = v6(dev, reps)
     print(f"v6: {json.dumps(res['v6'])}", flush=True)
+    if args.prove:
+        res["prove_s"] = prove(args.prove)
+        print(f"prove_s: {json.dumps(res['prove_s'])}", flush=True)
     print(json.dumps(res))
 
 
