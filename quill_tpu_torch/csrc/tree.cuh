@@ -44,7 +44,7 @@
 // of 256 threads, 2 an SM, as G's.  Level 2 in the same launch, with one
 // copy of g1_finish shared by the two adds, was tried and dropped: on an
 // H100 the whole prefix tree took 4.29-4.31 ms with it against 3.88-3.90
-// ms without, a v6 MSM 8.9-9.2 ms against 8.8 (PERF.md, PR 12).
+// ms without, a v6 MSM 8.9-9.2 ms against 8.8 (PERF.md).
 //
 // The fused top: one block holds a level of at most TREE_TOP points and
 // every level above it in shared memory, runs the up-sweep to one point
