@@ -6,9 +6,7 @@ against the host CRS, every hand-written kernel against its plain PyTorch
 twin on the card, and running the field bench.
 
 Usage (from the root of a checkout):
-    python3 chip_smoke.py [--profile] [--cross-check]
---profile proves the 2^16 rows a second time under torch.profiler and
-prints the device busy share and the kernels that take most of its time.
+    python3 chip_smoke.py [--cross-check]
 --cross-check proves the 2^20 rows a second time with every MSM off the
 v8 route (`msm_shift_max` above the CRS: kernels C + D) and requires the
 same bytes; the 2^20 pin below was fixed from such a run.
@@ -1567,35 +1565,6 @@ def triangle_doubling(acc, card):
     return rec
 
 
-def profile_prove(hp, witness):
-    """A second prove under torch.profiler: device busy share (summed
-    kernel time over wall time) and the kernels that take most of it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from quill_tpu_torch.proof.hyperplonk import TraceWitness
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.time()
-        hp.prove([TraceWitness(columns=witness)])
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    log(f"profile: wall {wall:.3f}s, device busy {busy_us / 1e6:.3f}s "
-        f"({100 * busy_us / 1e6 / wall:.1f}%)")
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    ours = ("sc_", "ntt_", "bucket_", "pt_add", "tree_",
-            "seg_scan", "void tree_", "mont_mul_")
-    for i, e in enumerate(rows):
-        if i < 12 or e.key.startswith(ours):
-            log(f"  {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.1f} "
-                f"ms x{e.count}")
-
-
 def fibonacci(rows: int):
     """The circuit and witness of scripts/prove_tpu.py:43-64."""
     from quill_tpu_torch.fields.bn254 import R
@@ -1740,12 +1709,11 @@ def prove_path(engine, circuit, witness, make_kzg, tag: str):
         {k: spans.get(k) for k in ("kzg/quotient", "kzg/open_msm",
                                    "mlpcs/s_poly")}))
     return dict(data=data, digest=digest, launches=launches, routes=routes,
-                by_phase=by_phase, hp=hp, pcs=pcs)
+                by_phase=by_phase)
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--cross-check", action="store_true")
     args = ap.parse_args()
 
@@ -1793,8 +1761,6 @@ def main():
     check(small["launches"]["msm5_shifted_basis"] > 0
           and small["launches"]["msm5_pt_add"] == 0,
           "the 2^16-row path built no shifted basis, or added with kernel E")
-    if args.profile:
-        profile_prove(small["hp"], witness)
     small_launches = small["launches"]
     del small
 

@@ -28,6 +28,7 @@ import torch
 from ..fields import device as fd
 from ..fields.device import FR
 from ..kernels import build
+from ..utils.profiling import phase
 from . import curve
 from . import device as ed
 
@@ -286,8 +287,9 @@ def dense_buckets(basis: TorchBasis, scalars: torch.Tensor,
     n = min(basis.length, scalars.shape[0])
     if n == 0:
         return None
-    digits = signed_digits(fd.from_mont(scalars[:n], FR))
-    keys, entries = sorted_entries(digits, basis.inf[:n])
+    with phase("msm/cd/sort"):
+        digits = signed_digits(fd.from_mont(scalars[:n], FR))
+        keys, entries = sorted_entries(digits, basis.inf[:n])
     if keys.numel() == 0:
         return None
     return bucket_sums(basis.xy[:n].contiguous(), keys, entries, plain)
@@ -316,4 +318,6 @@ def combine_windows(wsums: torch.Tensor) -> curve.Jacobian:
 
 def msm(basis: TorchBasis, scalars: torch.Tensor,
         plain: bool = False) -> curve.Jacobian:
-    return combine_windows(window_sums(basis, scalars, plain))
+    wsums = window_sums(basis, scalars, plain)
+    with phase("msm/cd/combine"):
+        return combine_windows(wsums)

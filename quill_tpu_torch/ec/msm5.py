@@ -51,6 +51,7 @@ import torch
 from ..fields import device as fd
 from ..fields.device import FQ, FR
 from ..kernels import build
+from ..utils.profiling import phase
 from . import curve
 from . import device as ed
 from .msm import TorchBasis
@@ -605,20 +606,27 @@ def msm_batch(basis: TorchBasis, scalars: list) -> list:
     nb = len(scalars)
     n = basis.length
     dev = basis.xy.device
-    canon = [fd.from_mont(s[:n], FR) for s in scalars]
+    with phase("msm/small/sort"):
+        canon = [fd.from_mont(s[:n], FR) for s in scalars]
     ident = curve.Jacobian.identity(curve.Fq(1))
     s_acc, t_acc = [ident] * nb, [ident] * nb
     for j in range(-(-n // CHUNK)):
         sh = shifted(basis, j)
         nj = sh.shape[0] // NWIN
         lo = j * CHUNK
-        scs = torch.zeros((nb, nj, fd.NLIMB), dtype=torch.int32, device=dev)
-        for b, c in enumerate(canon):
-            part = c[lo:lo + nj]
-            scs[b, :part.shape[0]] = part
-        keys, idx = sort_leaves(scs, root.inf[lo:lo + nj])
+        with phase("msm/small/sort"):
+            scs = torch.zeros((nb, nj, fd.NLIMB), dtype=torch.int32,
+                              device=dev)
+            for b, c in enumerate(canon):
+                part = c[lo:lo + nj]
+                scs[b, :part.shape[0]] = part
+            keys, idx = sort_leaves(scs, root.inf[lo:lo + nj])
         i1 = prefix_tree(sh, idx)
         s_pts, t_pts = collect(keys, idx, i1, sh, nb)
-        s_acc = [a.add(p) for a, p in zip(s_acc, ed.proj_to_jacobians(s_pts))]
-        t_acc = [a.add(p) for a, p in zip(t_acc, ed.proj_to_jacobians(t_pts))]
-    return finalize(s_acc, t_acc)
+        with phase("msm/small/combine"):
+            s_acc = [a.add(p) for a, p in
+                     zip(s_acc, ed.proj_to_jacobians(s_pts))]
+            t_acc = [a.add(p) for a, p in
+                     zip(t_acc, ed.proj_to_jacobians(t_pts))]
+    with phase("msm/small/combine"):
+        return finalize(s_acc, t_acc)

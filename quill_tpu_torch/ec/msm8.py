@@ -45,6 +45,7 @@ import torch
 from ..fields import device as fd
 from ..fields.device import FQ, FR
 from ..kernels import build
+from ..utils.profiling import phase
 from . import curve
 from . import device as ed
 from . import msm5
@@ -280,13 +281,20 @@ def msm(basis: TorchBasis, scalars: torch.Tensor) -> curve.Jacobian:
     if n == 0:
         return curve.Jacobian.identity(curve.Fq(1))
     dev = basis.xy.device
-    canon = fd.from_mont(scalars[:n], FR)
-    acc = ed.identity(NWIN * NBUCK, dev)
+    with phase("msm/v8/digits"):
+        canon = fd.from_mont(scalars[:n], FR)
+        acc = ed.identity(NWIN * NBUCK, dev)
     for lo in range(0, n, CHUNK):
         hi = min(n, lo + CHUNK)
-        sorted_d, xs, flags = chunk_entries(canon[lo:hi], basis.xy[lo:hi],
-                                            basis.inf[lo:hi])
-        ys, wf, offs = chunk_scan(xs, flags)
+        with phase("msm/v8/digits"):
+            sorted_d, xs, flags = chunk_entries(
+                canon[lo:hi], basis.xy[lo:hi], basis.inf[lo:hi])
+        with phase("msm/v8/scan"):
+            ys, wf, offs = chunk_scan(xs, flags)
         del xs
-        acc = collect(sorted_d, ys, wf, offs, acc)
-    return combine_windows(triangle(acc))
+        with phase("msm/v8/collect"):
+            acc = collect(sorted_d, ys, wf, offs, acc)
+    with phase("msm/v8/triangle"):
+        wsums = triangle(acc)
+    with phase("msm/v8/combine"):
+        return combine_windows(wsums)

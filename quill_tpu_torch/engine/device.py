@@ -31,6 +31,7 @@ from ..fields import device as fd
 from ..fields.bn254 import R
 from ..fields.device import FR
 from ..poly import ntt
+from ..utils.profiling import phase
 from . import sumcheck
 from .expr import compile_expr, const_tensor, eval_program_w
 from .host import HostEngine
@@ -349,17 +350,18 @@ class TorchEngine:
     def msm(self, basis, scalars):
         """One MSM by the route its basis picks; host scalar vectors are
         loaded to the device first."""
-        s = self._scalars(scalars)
         route = self.msm_route(basis)
         self.msm_counts[route] += 1
-        if route == "small":
-            self.msm_counts["small_batches"] += 1
-            return msm5.msm_batch(basis, [s])[0]
-        if route == "v8":
-            return msm8.msm(basis, s)
-        if route == "v6":
-            return msm6.msm(basis, s)
-        return msm_mod.msm(basis, s)
+        with phase(f"msm/{route}"):
+            s = self._scalars(scalars)
+            if route == "small":
+                self.msm_counts["small_batches"] += 1
+                return msm5.msm_batch(basis, [s])[0]
+            if route == "v8":
+                return msm8.msm(basis, s)
+            if route == "v6":
+                return msm6.msm(basis, s)
+            return msm_mod.msm(basis, s)
 
     def msm_many(self, jobs: list) -> list:
         """`engine/device.py:993 TpuEngine.msm_many`: jobs over one CRS
@@ -376,15 +378,16 @@ class TorchEngine:
         roots = {id(b.root or b) for b, _ in jobs}
         if len(roots) != 1 or self.msm_route(widest) != "small":
             return [self.msm(b, s) for b, s in jobs]
-        scalars = [self._scalars(s)[:b.length] for b, s in jobs]
-        empty = scalars[0][:0]
-        out = []
-        for i in range(0, len(scalars), self.msm_batch):
-            part = scalars[i:i + self.msm_batch]
-            real = len(part)
-            if real > 1:
-                part += [empty] * (self.msm_batch - real)
-            self.msm_counts["small"] += real
-            self.msm_counts["small_batches"] += 1
-            out.extend(msm5.msm_batch(widest, part)[:real])
+        with phase("msm/small"):
+            scalars = [self._scalars(s)[:b.length] for b, s in jobs]
+            empty = scalars[0][:0]
+            out = []
+            for i in range(0, len(scalars), self.msm_batch):
+                part = scalars[i:i + self.msm_batch]
+                real = len(part)
+                if real > 1:
+                    part += [empty] * (self.msm_batch - real)
+                self.msm_counts["small"] += real
+                self.msm_counts["small_batches"] += 1
+                out.extend(msm5.msm_batch(widest, part)[:real])
         return out

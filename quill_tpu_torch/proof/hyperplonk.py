@@ -201,43 +201,28 @@ class HyperPlonk:
         log2_rows = rows.bit_length() - 1
         log2_cols = cols.bit_length() - 1
 
+        publics = circuit.public_values()
         store = Store(engine, log2_rows)
-        for column in witness:
-            store.allocate_polynomial(column)
-        for public in circuit.public_values():
-            store.allocate_polynomial(public)
+        with phase("prove/witness_upload"):
+            for column in witness:
+                store.allocate_polynomial(column)
+            for public in publics:
+                store.allocate_polynomial(public)
 
         # alpha-batch all constraints (`proof.rs:166-175`)
-        exprs = circuit.zero_check_expressions()
-        alpha = transcript.draw_field_element()
-        zero_check_expr = Const(0)
-        a = 1
-        for expr in exprs:
-            zero_check_expr = zero_check_expr + Const(a) * expr
-            a = a * alpha % R
+        with phase("prove/zerocheck_expr"):
+            exprs = circuit.zero_check_expressions()
+            alpha = transcript.draw_field_element()
+            zero_check_expr = Const(0)
+            a = 1
+            for expr in exprs:
+                zero_check_expr = zero_check_expr + Const(a) * expr
+                a = a * alpha % R
+            zero_check_virtual = store.new_virtual_from_expr(zero_check_expr)
 
-        # HBM relief for huge traces: the rows*cols-cell trace polynomials
-        # (full witness, id, perm -- committed during preprocess/prove) are
-        # idle until the permutation phase; spill them to host RAM through
-        # the zerocheck so its sumcheck state has headroom
-        import os as _os
-
-        spill = getattr(engine, "spill_vec", None)
-        big = (rows * cols).bit_length() - 1 >= int(
-            _os.environ.get("QUILL_SPILL_MIN_VARS", "23"))
-        if spill is not None and big:
-            for vec in (full_witness, pk.id_poly, pk.permutation_poly):
-                spill(vec)
-
-        zero_check_virtual = store.new_virtual_from_expr(zero_check_expr)
         with phase("prove/zerocheck"):
             zero_check_proof, zc_claim = zerocheck.prove(
                 store, zero_check_virtual, transcript, release_inputs=True)
-
-        unspill0 = getattr(engine, "unspill_vec", None)
-        if unspill0 is not None and big:
-            for vec in (full_witness, pk.id_poly, pk.permutation_poly):
-                unspill0(vec)
 
         # permutation check on the whole trace as one polynomial
         # (`proof.rs:183-196`)
@@ -249,14 +234,6 @@ class HyperPlonk:
             perm_proof, perm_point = permutation_check.prove(
                 store2, witness_virtual, witness_virtual,
                 pk.id_poly, pk.permutation_poly, transcript, pcs)
-
-        # the huge-trace multiset sumcheck may have spilled the h-side
-        # tables to host RAM (`multiset_check.prove`); the openings below
-        # need them device-resident again
-        unspill = getattr(engine, "unspill_vec", None)
-        if unspill is not None:
-            for vec in (full_witness, pk.id_poly, pk.permutation_poly):
-                unspill(vec)
 
         # witness openings at the zero-check point extended with column bits
         # (`proof.rs:202-210`); fused in memory-bounded groups (each open
@@ -271,10 +248,11 @@ class HyperPlonk:
             openings_zero_check = _open_grouped(pcs, items, transcript)
 
         # public-column openings at the zero-check point (`proof.rs:213-219`)
-        publics = circuit.public_values()
-        openings_public = _open_grouped(
-            pcs, [(engine.vec_from_ints(publics[i]), list(zc_claim.point))
-                  for i in range(circuit.num_public_columns())], transcript)
+        with phase("prove/public_openings"):
+            openings_public = _open_grouped(
+                pcs, [(engine.vec_from_ints(publics[i]), list(zc_claim.point))
+                      for i in range(circuit.num_public_columns())],
+                transcript)
 
         # id / permutation / trace openings at the permutation-check point
         # (`proof.rs:222-226`): one fused pipeline, shared eq table
@@ -371,7 +349,12 @@ class HyperPlonk:
         )
 
     def prove(self, witness_traces: list[TraceWitness]) -> HyperPlonkProof:
-        """`prove` (`proof.rs:239-301`)."""
+        """`prove` (`proof.rs:239-301`), in the span `prove`: the root of
+        the prove's spans."""
+        with phase("prove"):
+            return self._prove(witness_traces)
+
+    def _prove(self, witness_traces: list[TraceWitness]) -> HyperPlonkProof:
         pcs = self.pcs
         engine = pcs.engine
         transcript = Transcript(DOMAIN)
@@ -385,13 +368,15 @@ class HyperPlonk:
                 assert len(col) == circuit.num_rows(), \
                     "Witness column row length mismatch"
 
-            circuit.check_constraints(witness)
+            with phase("prove/check_constraints"):
+                circuit.check_constraints(witness)
 
             # column-major flattening (`proof.rs:270`)
-            flat: list[int] = []
-            for col in witness:
-                flat.extend(col)
-            full_traces.append(engine.vec_from_ints(flat))
+            with phase("prove/witness_upload"):
+                flat: list[int] = []
+                for col in witness:
+                    flat.extend(col)
+                full_traces.append(engine.vec_from_ints(flat))
 
         # the per-trace appends (`proof.rs:279-280`) only interleave
         # appends, never draws, so all witness commitments batch into one

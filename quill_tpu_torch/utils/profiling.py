@@ -1,24 +1,35 @@
-"""Phase timing / metrics collection (SURVEY §5: the reference has no
-tracing or metrics; this is the TPU build's observability layer).
+"""The port's host spans: seconds by span name always, and intervals with
+their parents while a recording is open.
 
 Usage:
-    from quill_tpu_torch.utils.profiling import metrics, phase
-    with phase("commit/witness"):
+    from quill_tpu_torch.utils.profiling import metrics, phase, recording
+    with phase("prove/zerocheck"):
         ...
-    print(metrics.report())
+    print(metrics.report())            # seconds and calls by span name
 
-Phases are host spans; `torch.profiler` (chip_smoke.py --profile) traces
-the device.
+    with recording() as rec:           # off unless opened
+        hp.prove(...)
+    rec.spans                          # Span(name, id, parent, start_ns, end_ns)
+    rec.self_ns()                      # span id -> time in no child span
+
+`phase` adds each span's host seconds into `metrics.times`.  While a
+`recording()` is open it also keeps the span, with the id of the span it
+opened in, on `time.time_ns()`: the clock the traced run of
+`python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
+--trace 1` clips the profiler's device events against, so a recorded
+span compares directly with a device event.  Spans nest on the one
+thread a prove runs on; a span opened at the top is a root, and its id
+is the identifier of the prove (or the serialisation) it holds
+(`Recording.roots`).  With no recording open a span costs one branch
+more than the seconds alone.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import time
 from collections import defaultdict
-
-logger = logging.getLogger("quill_tpu")
+from typing import NamedTuple
 
 
 class Metrics:
@@ -29,9 +40,6 @@ class Metrics:
     def add(self, name: str, seconds: float) -> None:
         self.times[name] += seconds
         self.counts[name] += 1
-
-    def incr(self, name: str, n: int = 1) -> None:
-        self.counts[name] += n
 
     def reset(self) -> None:
         self.times.clear()
@@ -47,12 +55,74 @@ class Metrics:
 metrics = Metrics()
 
 
+class Span(NamedTuple):
+    name: str
+    id: int
+    parent: int       # -1 for a span opened at the top
+    start_ns: int     # time.time_ns()
+    end_ns: int
+
+
+class Recording:
+    """The spans closed while it was open, in the order they closed."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+        self._open: list[tuple] = []   # (name, id, parent, start_ns)
+
+    def _begin(self, name: str, t: int) -> tuple:
+        parent = self._open[-1][1] if self._open else -1
+        entry = (name, len(self.spans) + len(self._open), parent, t)
+        self._open.append(entry)
+        return entry
+
+    def _end(self, entry: tuple, t: int) -> None:
+        self._open.remove(entry)
+        self.spans.append(Span(*entry, t))
+
+    def self_ns(self) -> dict[int, int]:
+        """Span id -> its duration minus the part its child spans cover
+        (children run on the span's thread, inside it, one at a time)."""
+        out = {s.id: s.end_ns - s.start_ns for s in self.spans}
+        for s in self.spans:
+            if s.parent in out:
+                out[s.parent] -= s.end_ns - s.start_ns
+        return out
+
+    def roots(self) -> dict[int, int]:
+        """Span id -> the id of its outermost ancestor (itself at the
+        top): the prove it belongs to."""
+        out: dict[int, int] = {}
+        for s in sorted(self.spans, key=lambda s: s.id):
+            out[s.id] = out.get(s.parent, s.id)
+        return out
+
+
+_recording: Recording | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep every span closed inside the block; -> the Recording."""
+    global _recording
+    outer, rec = _recording, Recording()
+    _recording = rec
+    try:
+        yield rec
+    finally:
+        _recording = outer
+
+
 @contextlib.contextmanager
 def phase(name: str):
-    t0 = time.time()
+    rec = _recording
+    t0 = time.time_ns()
+    if rec is not None:
+        entry = rec._begin(name, t0)
     try:
         yield
     finally:
-        dt = time.time() - t0
-        metrics.add(name, dt)
-        logger.debug("phase %s: %.4fs", name, dt)
+        t1 = time.time_ns()
+        metrics.add(name, (t1 - t0) / 1e9)
+        if rec is not None:
+            rec._end(entry, t1)

@@ -18,6 +18,7 @@ from ..piops import (lookup, multiset_check, permutation_check, set_inclusion,
                      sumcheck, zerocheck)
 from ..proof import hyperplonk
 from ..transcript import serialize as ser
+from .profiling import phase
 
 SW_INF = ser.SW_POINT_AT_INFINITY
 
@@ -130,6 +131,11 @@ def _r_multiset(buf) -> multiset_check.MultisetEqualityProof:
 
 
 def serialize_proof(proof: hyperplonk.HyperPlonkProof) -> bytes:
+    with phase("proof_io/serialize"):
+        return _serialize_proof(proof)
+
+
+def _serialize_proof(proof: hyperplonk.HyperPlonkProof) -> bytes:
     buf = io.BytesIO()
     _w_usize(buf, len(proof.witness_commitment))
     for c in proof.witness_commitment:
