@@ -41,6 +41,8 @@ Phases, any failure exits non-zero:
    fused top at the batch's top level and its reduce mode on the
    collect's and v6's reductions, each with `torch.equal`, and the whole
    prefix tree against the chain of one-level launches, both timed;
+   v8's entries kernels on one v8 chunk (the sorted digits, scan input
+   and flags of 2^16 Montgomery scalars, `torch.equal`);
    kernel E's v8 collect mode on one v8 chunk; kernel E's walk mode, v6's
    bucket queries, against the chain of flagged launches, and the fused
    top as v6's prefix, at a 2^18-point v6 MSM's shapes; kernel J's table, one
@@ -65,7 +67,8 @@ preprocess and prove), its MSMs by route and
 its host spans (`kzg/quotient` and `kzg/open_msm` on a line of their own);
 every kernel must have launched in the CRS build, the field bench or one
 of the paths, kernel M on the 2^16- and the 2^20-row paths, and the v8
-collect on the 2^20-row path.  The 2^16-row path's shifted basis is
+collect on the 2^20-row path, with one entries call a chunk (as many as
+collects; the prove's are logged).  The 2^16-row path's shifted basis is
 kernel E's one launch a call (no E add on that path), the v6 path one
 query walk and one leaf-level launch (K) a v6 MSM and no E add, and v8's
 triangle one doubling launch
@@ -1383,8 +1386,9 @@ def fixed_base_kernel(kzg_big, card):
 
 
 def v8_kernels(kzg_big, card):
-    """I on one v8 chunk's scans
-    (2^16 uniform scalars: 20 windows x 256 lanes of 256 sorted entries,
+    """v8's entries kernels on one chunk of 2^16 uniform Montgomery
+    scalars against their plain twin; I on that chunk's scans
+    (20 windows x 256 lanes of 256 sorted entries,
     then the block totals, then the triangle's 20 x 32 lanes of 256
     buckets), and at the chunk and block-scan shapes on every adversarial
     flag pattern (SCAN_PATTERNS); kernel E's v8 collect mode on that
@@ -1406,9 +1410,28 @@ def v8_kernels(kzg_big, card):
     nbig = bb.length - 1
     s_big = uniform_scalars(nbig, dev, 1234, [0, 1, R - 1, R - 2] + [
         8191 << (13 * w) for w in range(19)])
-    canon = fd.from_mont(s_big[:msm8.CHUNK], fd.FR)
-    sorted_d, xs, flags = msm8.chunk_entries(
-        canon, bb.xy[:msm8.CHUNK], bb.inf[:msm8.CHUNK])
+    chunk = (s_big[:msm8.CHUNK], bb.xy[:msm8.CHUNK], bb.inf[:msm8.CHUNK])
+    sorted_d, xs, flags = msm8.chunk_entries(*chunk)
+    want = msm8.chunk_entries_plain(*chunk)
+    check(all(torch.equal(g, w) for g, w in zip((sorted_d, xs, flags), want)),
+          "v8's entries kernels differ from their plain twin")
+    del want
+    n, (nwin, npad) = msm8.CHUNK, sorted_d.shape
+    out.append(dict(
+        name="msm8_entries", route="cuda",
+        source="quill_tpu_torch/csrc/msm8.cu + csrc/entries.cuh",
+        replaces="quill_tpu/ec/msm8.py:117 (_k_sort_gather8, XLA; the "
+                 "port's plain-torch digits, sort and gathers)",
+        shape=f"one v8 chunk: {n} Montgomery scalars -> {nwin} x {npad} "
+              f"sorted entries, four launches",
+        max_abs_err=0,
+        ms=cuda_ms(lambda: msm8.chunk_entries(*chunk)),
+        plain_ms=cuda_ms(lambda: msm8.chunk_entries_plain(*chunk), reps=1),
+        **bound(card, n, n * (FE + AFF + 1) + nwin * npad * (PT + 4 + 1)),
+        library_ms=None))
+    log(f"v8 entries, one chunk of {n}: {out[-1]['ms']:.3f} ms vs plain "
+        f"{out[-1]['plain_ms']:.3f} ms (bound {out[-1]['bound_ms']:.4f} "
+        f"ms); equal")
     m, steps = xs.shape[:2]
     err_i = scan_err(xs, flags)
     times = dict(
@@ -1793,6 +1816,10 @@ def main():
           and big["launches"]["msm8_collect"] > 0,
           "kernel M or the v8 collect never launched on the 2^20-row path")
     v8 = big["routes"]["v8"]
+    check(big["launches"]["msm8_entries"] == big["launches"]["msm8_collect"],
+          "the 2^20-row path did not take one entries call a v8 chunk")
+    log(f"2^{BIG_LOG2_ROWS}-row prove: {big['by_phase']['msm8_entries'][2]} "
+        f"v8 entries calls (one a chunk)")
     check(big["launches"]["msm5_pt_dbl"] == v8
           and big["launches"]["msm5_pt_add"] == 3 * v8,
           "v8's triangle did not take one doubling and 3 adds a MSM")

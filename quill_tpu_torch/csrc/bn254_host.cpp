@@ -5,11 +5,13 @@
 //
 // Build: g++ -x c++ -std=c++17 -O2 -shared -fPIC -o libbn254_host.so
 //        bn254_host.cpp
+#include <algorithm>
 #include <memory>
 #include <vector>
 
 #include "bn254.cuh"
 #include "bucket.cuh"
+#include "entries.cuh"
 #include "fixed_base.cuh"
 #include "ladder.cuh"
 #include "ntt.cuh"
@@ -680,6 +682,70 @@ void q_pt_add_blocked(const uint32_t* a, const uint32_t* b,
     }
     for (int i = 0; i < 6 * S; ++i)
       add_store(flags, n, r0, S, i, sh.data(), out);
+  }
+}
+
+// v8's entries kernels (csrc/msm8.cu: v8e_*) on one chunk, launch by
+// launch in order, from the same pieces (entries.cuh): the digits and each
+// segment's histograms, their prefixes over the segments and the windows'
+// totals, each digit's first position, the place kernel's warps one round
+// of 32 lanes at a time (__match_any_sync's groups found by comparing the
+// lanes' digits, each group's first lane advancing its counter), then every
+// position's coordinates, digit and flag.  sd (NWIN, npad) int32, pts
+// (NWIN * npad, 24) and flags (NWIN * npad) as quill_v8_entries writes
+// them.
+void q_v8_entries_blocked(const uint32_t* scs, const uint32_t* xy,
+                          const uint8_t* inf, long n, long npad, long seg,
+                          int32_t* sd, uint32_t* pts, uint8_t* flags) {
+  const long S = (n + seg - 1) / seg, NB = V8E_NBUCK, W = V8E_NWIN;
+  std::vector<uint16_t> dig(W * n);
+  std::vector<int> hist(W * S * NB, 0), tot(W * NB), start(W * NB);
+  std::vector<int32_t> ent(W * npad, -1);
+  for (long i = 0; i < n; ++i) {
+    const Fe c = v8e_canonical(scs + 8 * i);
+    for (int w = 0; w < W; ++w) dig[w * n + i] = (uint16_t)v8e_digit(c, w);
+  }
+  for (long w = 0; w < W; ++w)
+    for (long i = 0; i < n; ++i) ++hist[(w * S + i / seg) * NB + dig[w * n + i]];
+  for (long w = 0; w < W; ++w) {
+    int run = 0;
+    for (long d = 0; d < NB; ++d) {
+      tot[w * NB + d] = v8e_column(&hist[(w * S) * NB + d], S, NB) +
+                        (d == 0 ? (int)(npad - n) : 0);
+      start[w * NB + d] = run;
+      run += tot[w * NB + d];
+    }
+  }
+  for (long w = 0; w < W; ++w)
+    for (long s = 0; s < S; ++s) {
+      int* c = &hist[(w * S + s) * NB];
+      const long lo = s * seg, hi = std::min(n, lo + seg);
+      for (long base = lo; base < hi; base += 32) {
+        int d[32], o[32];
+        for (int l = 0; l < 32; ++l)
+          d[l] = base + l < hi ? dig[w * n + base + l] : 0;
+        for (int l = 0; l < 32; ++l) {
+          if (d[l] == 0) continue;
+          int leader = 0, rank = 0, size = 0;
+          while (d[leader] != d[l]) ++leader;
+          for (int j = 0; j < 32; ++j) {
+            size += d[j] == d[l];
+            rank += j < l && d[j] == d[l];
+          }
+          if (l == leader) {
+            o[l] = start[w * NB + d[l]] + c[d[l]];
+            c[d[l]] += size;
+          }
+          ent[w * npad + o[leader] + rank] = v8e_pack(d[l], base + l);
+        }
+      }
+    }
+  for (long q = 0; q < W * npad; ++q) {
+    const long w = q / npad, p = q - w * npad;
+    const int z = tot[w * NB];
+    for (int k = 0; k < 3; ++k) v8e_emit(q, k, p, z, ent.data(), xy, inf, pts);
+    flags[q] = v8e_flag(q, p, z, ent.data());
+    sd[q] = p < z ? 0 : v8e_entry_digit(ent[q]);
   }
 }
 

@@ -1,5 +1,6 @@
 // Kernel I: the segmented point scan of the v8 MSM route,
-// quill_tpu_torch/ec/msm8.py, and kernel E's v8 collect mode (below).
+// quill_tpu_torch/ec/msm8.py, kernel E's v8 collect mode and the v8 entries
+// kernels that make each chunk's scan input (both below).
 //
 // I  seg_scan  replaces quill_tpu/fields/pallas8.py:379 _seg_scan_kernel
 //              (seg_scan): for every lane independently, along its steps,
@@ -51,6 +52,7 @@
 // comes first.
 #include <cuda_runtime.h>
 
+#include "entries.cuh"
 #include "seg_scan.cuh"
 
 using namespace bn254;
@@ -231,6 +233,197 @@ v8_collect_kernel(const int32_t* __restrict__ sorted_d, int nwin,
   g1_store(dst, g1_add(g1_load(dst), v));
 }
 
+// ---------------------------------------------------------------------------
+// v8's entries: one chunk's Montgomery scalars to its sorted, gathered scan
+// input (`ec/msm8.py: chunk_entries`)
+// ---------------------------------------------------------------------------
+//
+// Replaces quill_tpu/ec/msm8.py:117 _k_sort_gather8 (an XLA function over
+// msm12._extract_digits: digits, sort_key_val, gathers into the scan
+// layout), which the port first ran as plain torch: fd.from_mont over the
+// MSM's scalars, then per chunk window_digits' int64 loop, a stable
+// torch.sort, an int64 gather of 1.31 M points, a cat and a where, with
+// three copies from host memory (each a wait for the card) a chunk.
+//
+// Bound on this card: bytes.  A chunk of 2^16 scalars writes 1,310,720
+// scan entries (96 bytes each, 126 MB), the sorted digits and flags (6.6
+// MB) and reads the scalars and points (6 MB): ~0.041 ms at 3.35 TB/s.  The
+// sort's own traffic (2.6 MB of digits, 21 MB of segment histograms, 5.2
+// MB of packed entries) mostly stays in the 50 MB L2; the 2^16
+// conversions out of Montgomery form are 2^16 Fr products (~0.002 ms of
+// IMADs).  What the launches take on an H100 is in PERF.md's kernel table.
+//
+// Design: four launches on the current stream, no host synchronisation, no
+// allocation (the wrapper hands every buffer in).  The keys are 13-bit and
+// every window has 8192 of them, so a stable counting sort needs no general
+// sort:
+//  1 v8e_digits_kernel: one block a (segment of `seg` scalars, group of
+//    V8E_WGROUP windows); each thread converts its scalars (v8e_canonical)
+//    and writes their digits of the group's windows (uint16, window-major);
+//    then, window by window, the block counts the segment's digits in
+//    shared memory (8192 counters) and writes them out.
+//  2 v8e_prefix_kernel: one thread a (window, digit): the digit's counts
+//    over the segments become their exclusive prefixes, in place
+//    (v8e_column), and its total (digit 0's with the padding) is written.
+//  3 v8e_place_kernel: one warp a (window, segment), alone in its block.
+//    It copies the segment's digits to shared memory, scans the window's
+//    totals (32 digits at a time, by shuffles) into each digit's first
+//    sorted position and adds the segment's prefixes: 8192 counters in
+//    shared memory, this segment's own.  Then over its scalars in order,
+//    32 at a time, __match_any_sync groups the lanes of one digit, the
+//    group's first lane reads and advances the digit's counter, and a
+//    lane's position is the counter plus the lanes of its group below it.
+//    There it stores one word, its digit above its scalar's index
+//    (v8e_pack): the scattered stores are most of this kernel's time, and a
+//    second array of digits took 0.022 ms more a chunk.  Equal digits keep
+//    the order of their scalars, the order of torch.sort(stable=True), so
+//    kernel I and the collect see the entries they saw before and the
+//    proof's bytes do not change.  Digit 0 is not placed: its entries are
+//    all the identity and fill each row's first positions.  (A first
+//    version kept the counters in device memory, read and advanced there,
+//    with one block scanning each window's totals: place 0.105 and prefix
+//    0.043 ms a chunk.)
+//  4 v8e_emit_kernel: three threads a sorted position, one a coordinate,
+//    gather the point through the entry's index (the chunk's 4 MB of
+//    points stay in L2) straight into kernel I's lane-major layout; the
+//    first also writes the digit and the flag.
+#define V8E_DIGIT_THREADS 1024
+#define V8E_WGROUP 5  // windows a block of the digits kernel
+#define V8E_PREFIX_THREADS 256
+#define V8E_PLACE_SEG 4096  // the most scalars a segment (shared memory)
+#define V8E_EMIT_THREADS 256
+static_assert(V8E_NWIN % V8E_WGROUP == 0 && V8E_NBUCK % 32 == 0,
+              "window groups and the place kernel's rows of 32 digits");
+
+// dig: (NWIN, n) uint16 digits; hist: (NWIN, gridDim.x, NBUCK) counts
+__global__ void __launch_bounds__(V8E_DIGIT_THREADS)
+v8e_digits_kernel(const uint32_t* __restrict__ scs, long long n,
+                  long long seg, uint16_t* __restrict__ dig,
+                  int* __restrict__ hist) {
+  __shared__ int h[V8E_NBUCK];
+  const long long lo = (long long)blockIdx.x * seg;
+  const long long hi = lo + seg < n ? lo + seg : n;
+  const int w0 = blockIdx.y * V8E_WGROUP;
+  for (int d = threadIdx.x; d < V8E_NBUCK; d += V8E_DIGIT_THREADS) h[d] = 0;
+  for (long long i = lo + threadIdx.x; i < hi; i += V8E_DIGIT_THREADS) {
+    const Fe c = v8e_canonical(scs + 8 * i);
+#pragma unroll
+    for (int w = 0; w < V8E_NWIN; ++w)  // w constant: c.v in registers
+      if (w >= w0 && w < w0 + V8E_WGROUP)
+        dig[w * n + i] = (uint16_t)v8e_digit(c, w);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int w = w0; w < w0 + V8E_WGROUP; ++w) {
+    // each thread counts the digits it wrote itself
+    for (long long i = lo + threadIdx.x; i < hi; i += V8E_DIGIT_THREADS)
+      atomicAdd(&h[dig[w * n + i]], 1);
+    __syncthreads();
+    int* out = hist + ((long long)w * gridDim.x + blockIdx.x) * V8E_NBUCK;
+    for (int d = threadIdx.x; d < V8E_NBUCK; d += V8E_DIGIT_THREADS) {
+      out[d] = h[d];
+      h[d] = 0;
+    }
+    __syncthreads();
+  }
+}
+
+// hist: (NWIN, S, NBUCK) counts -> their exclusive prefixes over the
+// segments; tot: (NWIN, NBUCK) each digit's count in the window
+__global__ void __launch_bounds__(V8E_PREFIX_THREADS)
+v8e_prefix_kernel(int* __restrict__ hist, long long S, int pad,
+                  int* __restrict__ tot) {
+  const long long t = (long long)blockIdx.x * V8E_PREFIX_THREADS + threadIdx.x;
+  if (t >= (long long)V8E_NWIN * V8E_NBUCK) return;
+  const long long w = t / V8E_NBUCK;
+  const int d = (int)(t - w * V8E_NBUCK);
+  tot[t] = v8e_column(hist + w * S * V8E_NBUCK + d, S, V8E_NBUCK) +
+           (d == 0 ? pad : 0);
+}
+
+// One warp a (window, segment): the segment's nonzero digits placed in
+// ent (NWIN, npad), from the row's first nonzero digit on, packed with
+// their scalars' indices.  seg is at most V8E_PLACE_SEG.
+__global__ void __launch_bounds__(32)
+v8e_place_kernel(const uint16_t* __restrict__ dig, long long n,
+                 long long seg, long long S, const int* __restrict__ pre,
+                 const int* __restrict__ tot, long long npad,
+                 int32_t* __restrict__ ent) {
+  __shared__ int cnt[V8E_NBUCK];
+  __shared__ uint16_t sdig[V8E_PLACE_SEG];
+  const int lane = threadIdx.x;
+  const long long gw = blockIdx.x;  // w * S + s
+  const int w = (int)(gw / S);
+  const long long lo = (gw - (long long)w * S) * seg;
+  const long long hi = lo + seg < n ? lo + seg : n;
+  const uint16_t* dw = dig + w * n;
+  for (long long i = lo + lane; i < hi; i += 32) sdig[i - lo] = dw[i];
+  // each digit's first position in the window (the exclusive scan of the
+  // window's totals, 32 digits at a time), plus the counts of the
+  // segments before this one
+  const int* tw = tot + (long long)w * V8E_NBUCK;
+  const int* pw = pre + gw * V8E_NBUCK;
+  int carry = 0;
+#pragma unroll 8
+  for (int c = 0; c < V8E_NBUCK; c += 32) {
+    const int t = tw[c + lane];
+    int inc = t;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(FULL_MASK, inc, o);
+      if (lane >= o) inc += v;
+    }
+    cnt[c + lane] = carry + inc - t + pw[c + lane];
+    carry += __shfl_sync(FULL_MASK, inc, 31);
+  }
+  __syncwarp();
+  int32_t* er = ent + w * npad;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll 1
+  for (long long b = lo; b < hi; b += 32) {
+    const long long i = b + lane;
+    const int d = i < hi ? sdig[i - lo] : 0;
+    // lanes of digit 0 or past the segment: a key of their own
+    const unsigned peers =
+        __match_any_sync(FULL_MASK, d > 0 ? (unsigned)d : 0x10000u + lane);
+    const int leader = __ffs(peers) - 1;
+    int o = 0;
+    if (d > 0 && lane == leader) {
+      o = cnt[d];
+      cnt[d] = o + __popc(peers);
+    }
+    o = __shfl_sync(FULL_MASK, o, leader);
+    if (d > 0) {
+      er[o + __popc(peers & below)] = v8e_pack(d, i);
+    }
+    __syncwarp();  // the counters' stores before the next round's loads
+  }
+}
+
+// Three threads a sorted position (a coordinate each): pts (NWIN * npad,
+// 24); the first also the digit sd and the flag (NWIN * npad), digit 0 in
+// each row's first tot[w][0] positions (digit 0's and the padding)
+__global__ void __launch_bounds__(V8E_EMIT_THREADS)
+v8e_emit_kernel(const int32_t* __restrict__ ent,
+                const uint32_t* __restrict__ xy,
+                const uint8_t* __restrict__ inf,
+                const int* __restrict__ tot, long long npad,
+                int32_t* __restrict__ sd, uint32_t* __restrict__ pts,
+                uint8_t* __restrict__ flags) {
+  const long long t = (long long)blockIdx.x * V8E_EMIT_THREADS + threadIdx.x;
+  if (t >= 3LL * V8E_NWIN * npad) return;
+  const long long q = t / 3;
+  const int k = (int)(t - 3 * q);
+  const int w = (int)(q / npad);
+  const long long p = q - w * npad;
+  const int z = tot[(long long)w * V8E_NBUCK];
+  v8e_emit(q, k, p, z, ent, xy, inf, pts);
+  if (k == 0) {
+    flags[q] = v8e_flag(q, p, z, ent);
+    sd[q] = p < z ? 0 : v8e_entry_digit(ent[q]);
+  }
+}
+
 static int g_wave = 0;  // threads in one full wave of the card
 
 static cudaError_t wave_threads(int* wave) {
@@ -295,5 +488,44 @@ extern "C" int quill_v8_collect(const void* sorted_d, int nwin,
                       COLLECT_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)sorted_d, nwin, npad, nbuck, bs, (const uint32_t*)ys,
       (const uint8_t*)wf, (const uint32_t*)offs, (uint32_t*)acc);
+  return (int)cudaGetLastError();
+}
+
+// One chunk of n Montgomery Fr scalars (n, 8) against its (n, 2, 8) affine
+// points and (n,) infinity bytes -> sorted_d (NWIN, npad) int32, pts (NWIN *
+// npad, 24) and flags (NWIN * npad) bytes, npad >= n the row length with
+// its padding (digit 0), n at most V8E_MAX_N.  Scratch: dig (NWIN, n)
+// uint16, hist (NWIN, S, NBUCK), tot (NWIN, NBUCK) and ent (NWIN, npad)
+// int32, with S = ceil(n / seg) segments of seg scalars.  Four launches.
+extern "C" int quill_v8_entries(const void* scs, const void* xy,
+                                const void* inf, long long n, long long npad,
+                                long long seg, void* dig, void* hist,
+                                void* tot, void* ent, void* sorted_d,
+                                void* pts, void* flags, void* stream) {
+  if (n <= 0 || n > V8E_MAX_N || seg <= 0 || seg > V8E_PLACE_SEG ||
+      npad < n || npad - n > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long S = (n + seg - 1) / seg;
+  v8e_digits_kernel<<<dim3((unsigned)S, V8E_NWIN / V8E_WGROUP),
+                      V8E_DIGIT_THREADS, 0, st>>>(
+      (const uint32_t*)scs, n, seg, (uint16_t*)dig, (int*)hist);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  v8e_prefix_kernel<<<V8E_NWIN * V8E_NBUCK / V8E_PREFIX_THREADS,
+                      V8E_PREFIX_THREADS, 0, st>>>(
+      (int*)hist, S, (int)(npad - n), (int*)tot);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  v8e_place_kernel<<<(unsigned)(V8E_NWIN * S), 32, 0, st>>>(
+      (const uint16_t*)dig, n, seg, S, (const int*)hist, (const int*)tot,
+      npad, (int32_t*)ent);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const long long threads = 3LL * V8E_NWIN * npad;
+  v8e_emit_kernel<<<(unsigned)((threads + V8E_EMIT_THREADS - 1) /
+                               V8E_EMIT_THREADS),
+                    V8E_EMIT_THREADS, 0, st>>>(
+      (const int32_t*)ent, (const uint32_t*)xy, (const uint8_t*)inf,
+      (const int*)tot, npad, (int32_t*)sorted_d, (uint32_t*)pts,
+      (uint8_t*)flags);
   return (int)cudaGetLastError();
 }

@@ -9,11 +9,12 @@ basis and no tree: one CRS chunk of 2^16 points at a time, and across
 chunks only a fixed (20 windows x 8192 buckets) array of projective
 accumulators.  Per chunk:
 
-1. digits and sort: 20 unsigned 13-bit windows (`msm5.window_digits`),
-   each window's digits sorted (`torch.sort`, stable); an entry whose digit
-   is 0, or whose basis point is at infinity, becomes the identity and
-   stays in the sequence (`msm8.py:117-153`); a flag marks every position
-   where the digit changes, and the first position of each window;
+1. entries (`chunk_entries`, four launches of the entries kernels in
+   `csrc/msm8.cu`): each Montgomery scalar's 20 unsigned 13-bit windows,
+   each window's digits sorted stably; an entry whose digit is 0, or whose
+   basis point is at infinity, becomes the identity and stays in the
+   sequence (`msm8.py:117-153`); a flag marks every position where the
+   digit changes, and the first position of each window;
 2. chunk scan (`msm8.py:180-190`): each window's sorted sequence is cut
    into blocks of 256 entries, one scan lane per block; kernel I scans
    every lane, then the block totals of each window (restarting where a
@@ -39,6 +40,7 @@ sorted sequence above reshapes into lanes without a transpose.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
@@ -56,6 +58,8 @@ NBUCK = msm5.NBUCK
 WBITS = msm5.WBITS
 CHUNK = 1 << 16            # CRS points per chunk
 BS = 256                   # scan steps per lane (entries per block)
+SEG = 2048                 # scalars a segment of the entries' counting sort
+CHUNK_MAX = 1 << 16        # the entries kernels keep 16-bit scalar indices
 
 _FN = {}
 
@@ -72,7 +76,19 @@ def _fn(name="quill_seg_scan"):
             lib, "quill_v8_collect",
             [build.VP, build.I32, build.I64, build.I32, build.I32, build.VP,
              build.VP, build.VP, build.VP, build.VP])
+        _FN["quill_v8_entries"] = build.bind(
+            lib, "quill_v8_entries",
+            [build.VP, build.VP, build.VP, build.I64, build.I64, build.I64]
+            + [build.VP] * 8)
     return _FN[name]
+
+
+@lru_cache(maxsize=None)
+def _ident(device: str) -> torch.Tensor:
+    """The (1, 3, 8) identity point on `device`, made once: each
+    `ed.identity` copies its constant from host memory, and such a copy
+    waits for the card."""
+    return ed.identity(1, device)
 
 
 # ---------------------------------------------------------------------------
@@ -133,22 +149,64 @@ def seg_scan_plain(xs: torch.Tensor, flags: torch.Tensor | None = None):
 
 
 def chunk_entries(scs: torch.Tensor, xy: torch.Tensor, inf: torch.Tensor):
-    """(n, 8) canonical scalars against a chunk's (n, 2, 8) affine points
+    """(n, 8) Montgomery scalars against a chunk's (n, 2, 8) affine points
     and (n,) infinity mask -> (sorted int32 digits (NWIN, npad), scan input
     (NWIN * nb, BS, 3, 8), flags (NWIN * nb, BS)), npad = nb * BS the
-    chunk padded with digit-0 entries."""
+    chunk padded with digit-0 entries.  On the card the entries kernels
+    (`csrc/msm8.cu`: four launches, no host synchronisation); on the CPU
+    the plain twin."""
+    if not scs.is_cuda:
+        return chunk_entries_plain(scs, xy, inf)
     n = scs.shape[0]
+    for t, shape, dt in ((scs, (n, fd.NLIMB), torch.int32),
+                         (xy, (n, 2, fd.NLIMB), torch.int32),
+                         (inf, (n,), torch.bool)):
+        if not (t.is_cuda and t.dtype == dt and t.is_contiguous()
+                and t.shape == shape):
+            raise ValueError("chunk_entries takes contiguous CUDA tensors: "
+                             "(n, 8) int32 scalars, (n, 2, 8) int32 points, "
+                             "an (n,) bool mask")
+    if not 1 <= n <= CHUNK_MAX or xy.data_ptr() % 16:
+        raise ValueError(f"chunk_entries takes 1 to {CHUNK_MAX} scalars and "
+                         "16-byte aligned points")
     dev = scs.device
     nb = -(-n // BS)
-    d = msm5.window_digits(scs).T.to(torch.int32).contiguous()
+    npad = nb * BS
+    i32 = dict(dtype=torch.int32, device=dev)
+    dig = torch.empty((NWIN, n), dtype=torch.int16, device=dev)
+    hist = torch.empty((NWIN, -(-n // SEG), NBUCK), **i32)
+    tot = torch.empty((NWIN, NBUCK), **i32)
+    ent = torch.empty((NWIN, npad), **i32)
+    sorted_d = torch.empty((NWIN, npad), **i32)
+    pts = torch.empty((NWIN * nb, BS, 3, fd.NLIMB), **i32)
+    flags = torch.empty((NWIN * nb, BS), dtype=torch.bool, device=dev)
+    rc = _fn("quill_v8_entries")(
+        scs.data_ptr(), xy.data_ptr(), inf.data_ptr(), n, npad, SEG,
+        dig.data_ptr(), hist.data_ptr(), tot.data_ptr(), ent.data_ptr(),
+        sorted_d.data_ptr(), pts.data_ptr(), flags.data_ptr(),
+        build.stream_ptr())
+    build.check(rc, "msm8_entries")
+    build.count("msm8_entries")
+    return sorted_d, pts, flags
+
+
+def chunk_entries_plain(scs: torch.Tensor, xy: torch.Tensor,
+                        inf: torch.Tensor):
+    """The plain twin: the scalars out of Montgomery form, their digits
+    (`msm5.window_digits`), a stable `torch.sort` of each window, the
+    points gathered through the permutation."""
+    n = scs.shape[0]
+    nb = -(-n // BS)
+    d = msm5.window_digits(fd.from_mont(scs, FR)).T.to(torch.int32)
+    d = d.contiguous()
     if nb * BS > n:
         d = torch.cat((d, d.new_zeros((NWIN, nb * BS - n))), 1)
     sorted_d, perm = torch.sort(d, dim=1, stable=True)
     pc = perm.clamp(max=n - 1)
     dead = (sorted_d == 0) | inf[pc]
-    one = fd.const(1, FQ, dev).expand(*pc.shape, 1, fd.NLIMB)
+    ident = _ident(str(scs.device))
+    one = ident[0, 1].expand(*pc.shape, 1, fd.NLIMB)
     pts = torch.cat((xy[pc], one), -2)
-    ident = ed.identity(1, dev)
     pts = torch.where(dead[..., None, None], ident, pts)
     flags = torch.ones_like(dead)
     flags[:, 1:] = sorted_d[:, 1:] != sorted_d[:, :-1]
@@ -166,7 +224,7 @@ def chunk_scan(xs: torch.Tensor, flags: torch.Tensor):
     nb = xs.shape[0] // NWIN
     bys = seg_scan(ys[:, -1].reshape(NWIN, nb, 3, fd.NLIMB).contiguous(),
                    wf[:, -1].reshape(NWIN, nb).contiguous())
-    ident = ed.identity(NWIN, xs.device).unsqueeze(1)
+    ident = _ident(str(xs.device)).expand(NWIN, 1, 3, fd.NLIMB)
     offs = torch.cat((ident, bys[:, :-1]), 1)
     return ys, wf, offs.reshape(NWIN * nb, 3, fd.NLIMB)
 
@@ -276,19 +334,20 @@ def combine_windows(wsums: torch.Tensor) -> curve.Jacobian:
 
 def msm(basis: TorchBasis, scalars: torch.Tensor) -> curve.Jacobian:
     """(n, 8) Montgomery Fr scalars against the basis's first n points, one
-    chunk of CHUNK points at a time."""
+    chunk of CHUNK points at a time.  On the card nothing up to the host
+    combine waits for the host."""
     n = min(basis.length, scalars.shape[0])
     if n == 0:
         return curve.Jacobian.identity(curve.Fq(1))
     dev = basis.xy.device
     with phase("msm/v8/digits"):
-        canon = fd.from_mont(scalars[:n], FR)
-        acc = ed.identity(NWIN * NBUCK, dev)
+        scs = scalars[:n].contiguous()
+        acc = _ident(str(dev)).repeat(NWIN * NBUCK, 1, 1)
     for lo in range(0, n, CHUNK):
         hi = min(n, lo + CHUNK)
         with phase("msm/v8/digits"):
             sorted_d, xs, flags = chunk_entries(
-                canon[lo:hi], basis.xy[lo:hi], basis.inf[lo:hi])
+                scs[lo:hi], basis.xy[lo:hi], basis.inf[lo:hi])
         with phase("msm/v8/scan"):
             ys, wf, offs = chunk_scan(xs, flags)
         del xs

@@ -42,7 +42,7 @@ LIBS = {
 }
 HEADERS = ["bn254.cuh", "seg_scan.cuh", "quotient.cuh", "bucket.cuh",
            "ntt.cuh", "sumcheck.cuh", "ladder.cuh", "tree.cuh",
-           "fixed_base.cuh", "query.cuh"]
+           "fixed_base.cuh", "query.cuh", "entries.cuh"]
 HOST_SOURCE = "bn254_host.cpp"
 # host library -> C source under native/
 NATIVE_LIBS = {
@@ -80,6 +80,7 @@ LAUNCHES = {
     "field_mul": 0,          # kernel L
     "quotient": 0,           # kernel M (one a batch: its three phases)
     "msm8_collect": 0,       # kernel E, v8 collect mode (csrc/msm8.cu)
+    "msm8_entries": 0,       # v8's entries (csrc/msm8.cu): one a chunk
 }
 
 _LOADED: dict = {}

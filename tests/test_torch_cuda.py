@@ -1,5 +1,5 @@
-"""Kernels A to M and kernel E's v8 collect mode on the card against their
-plain twins, exactly.
+"""Kernels A to M, kernel E's v8 collect mode and v8's entries kernels on
+the card against their plain twins, exactly.
 
 These need an NVIDIA GPU with nvcc (they build the kernels from
 `quill_tpu_torch/csrc`) and skip elsewhere; whether a card is present is
@@ -784,8 +784,8 @@ def test_v8_collect_matches_plain(dev, case):
     ints = {"random": [RNG.randrange(R) for _ in range(600)],
             "equal": [R - 12345] * 600,
             "runs": [RNG.randrange(R)] * 300 + [RNG.randrange(R)] * 300}[case]
-    canon = fd.from_mont(fd.from_ints(ints, fd.FR, dev), fd.FR)
-    sd, xs, fl = msm8.chunk_entries(canon, basis.xy, basis.inf)
+    sd, xs, fl = msm8.chunk_entries(fd.from_ints(ints, fd.FR, dev),
+                                    basis.xy, basis.inf)
     ys, wf, offs = msm8.chunk_scan(xs, fl)
     acc0 = msm8.collect(sd, ys, wf, offs,
                         ed.identity(msm8.NWIN * msm8.NBUCK, dev))
@@ -794,3 +794,96 @@ def test_v8_collect_matches_plain(dev, case):
     assert build.LAUNCHES["msm8_collect"] == before + 1
     assert torch.equal(got, msm8.collect_plain(sd, ys, wf, offs, acc0.clone()))
     assert torch.equal(got, collect_sparse(sd, ys, wf, offs, acc0.clone()))
+
+
+ENTRY_CASES = ["n1", "n255", "n256", "n300", "n600", "n65536", "inf",
+               "equal", "zero", "edges", "cross"]
+
+
+def _entries_case(case, dev):
+    """A chunk's basis and Montgomery scalars on the card: uniform scalars
+    at widths of 1 to 2^16 (one in 1000 points at infinity), four more
+    points at infinity, all scalars equal, all zero, r - 1 and 1 between
+    uniform ones, one run of 80 equal scalars across a block boundary."""
+    n = int(case[1:]) if case.startswith("n") else 300
+    basis = _pool_points(n, dev, 31)
+    s = _uniform(n, dev, 32)
+    if case == "inf":
+        at = torch.tensor([0, 7, 150, 299], device=dev)
+        basis.inf[at] = True
+        basis.xy[at] = 0
+    elif case == "equal":
+        s = fd.from_ints([R - 12345] * n, fd.FR, dev)
+    elif case == "zero":
+        s = torch.zeros_like(s)
+    elif case == "edges":
+        s[::3] = fd.from_ints([R - 1], fd.FR, dev)
+        s[1::3] = fd.from_ints([1], fd.FR, dev)
+    elif case == "cross":
+        s[200:280] = s[200]
+    return basis, s
+
+
+@pytest.mark.parametrize("case", ENTRY_CASES)
+def test_v8_entries_match_plain(dev, case):
+    """v8's entries kernels (one wrapper call, four launches) against the
+    plain twin: the same sorted digits, scan input and flags."""
+    from quill_tpu_torch.ec import msm8
+
+    basis, s = _entries_case(case, dev)
+    before = build.LAUNCHES["msm8_entries"]
+    got = msm8.chunk_entries(s, basis.xy, basis.inf)
+    assert build.LAUNCHES["msm8_entries"] == before + 1
+    want = msm8.chunk_entries_plain(s, basis.xy, basis.inf)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_v8_msm_one_entries_launch_a_chunk(dev, monkeypatch):
+    """A v8 MSM of three chunks (CHUNK cut to 256: 256, 256 and 88 points)
+    counts one entries call and one collect a chunk, and equals the same
+    MSM on the CPU (the plain twins), kernels C + D and the host's."""
+    from quill_tpu_torch.ec import msm8
+
+    monkeypatch.setattr(msm8, "CHUNK", 256)
+    g = curve.g1_generator()
+    pts = [g.scalar_mul(k + 2).to_affine() for k in range(600)]
+    pts[9] = curve.Affine(curve.Fq(0), curve.Fq(0), infinity=True)
+    basis = M.load_basis(pts, dev)
+    ints = [RNG.randrange(R) for _ in range(600)]
+    ints[:3] = [0, 1, R - 1]
+    s = fd.from_ints(ints, fd.FR, dev)
+    before = dict(build.LAUNCHES)
+    got = msm8.msm(basis, s)
+    assert build.LAUNCHES["msm8_entries"] == before["msm8_entries"] + 3
+    assert build.LAUNCHES["msm8_collect"] == before["msm8_collect"] + 3
+    plain = msm8.msm(M.TorchBasis(xy=basis.xy.cpu(), inf=basis.inf.cpu(),
+                                  length=600), s.cpu())
+    assert got == plain == M.msm(basis, s) == curve.msm_host(pts, ints)
+
+
+def test_v8_msm_waits_on_the_host_only_in_the_combine(dev, monkeypatch):
+    """From its head to the host combine a v8 MSM of three chunks makes no
+    host synchronisation: under sync debug mode "error" a readback or a
+    copy from host memory raises.  The combine (two readbacks) runs with
+    the mode off."""
+    from quill_tpu_torch.ec import msm8
+
+    monkeypatch.setattr(msm8, "CHUNK", 256)
+    basis = _pool_points(600, dev, 41)
+    s = _uniform(600, dev, 42)
+    want = msm8.msm(basis, s)        # builds, makes the per-device constants
+    combine = msm8.combine_windows
+
+    def combine_unchecked(wsums):
+        torch.cuda.set_sync_debug_mode(0)
+        return combine(wsums)
+
+    monkeypatch.setattr(msm8, "combine_windows", combine_unchecked)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = msm8.msm(basis, s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got == want
