@@ -2,10 +2,12 @@
 to back in a measured window, an optional traced window, and the proofs
 judged by the plain reference.
 
-The program is `quill_tpu_torch`: `KZG.device_setup` (the CRS on the card),
-`HyperPlonk.preprocess`, then `HyperPlonk.prove` and `serialize_proof`,
-one proof in flight.  The benchmark makes tau, the statement and the
-witness from the seed and hands the same to the program and the reference.
+The program is `quill_tpu_torch`: `KZG.device_setup` (the CRS on the card,
+as large as the largest trace), `HyperPlonk.preprocess` of the statement's
+traces and cross-table lookups, then `HyperPlonk.prove` and
+`serialize_proof`, one proof in flight.  The benchmark makes tau, the
+statement and the witnesses from the seed and hands the same to the program
+and the reference.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import sys
 import time
 import traceback
 
+from reference.verify import traces_of
 from registry import Registry
 
 
@@ -84,7 +87,8 @@ class Cell:
         self.traffic = self.reg.traffic(self.workload["traffic"])
         circuit = self.reg.circuit(self.config["circuit"])
         self.statement = circuit.Statement.from_seed(
-            self.config["log2_rows"], self.seed)
+            self.config["log2_rows"], self.seed,
+            **self.config.get("circuit_args", {}))
         self.tau = tau_from_seed(self.seed)
         self.setup: dict = {}
         self.proofs: dict = {}     # sha256 -> [bytes, count]
@@ -113,21 +117,26 @@ class Cell:
         from quill_tpu_torch.utils.proof_io import serialize_proof
 
         self._serialize = serialize_proof
-        self._trace_witness = TraceWitness
         s = self.setup
         t = time.perf_counter()
         self.build()
         s["build_s"] = time.perf_counter() - t
 
+        # the witnesses handed to every prove, made once: a prove adds no
+        # host work of the benchmark's to the window
         t = time.perf_counter()
-        self.witness = self.statement.witness()
-        self.circuit = self.statement.program_circuit()
+        traces = traces_of(self.statement)
+        self.witnesses = [TraceWitness(columns=tr.witness())
+                          for tr in traces]
+        self.circuits = [tr.program_circuit() for tr in traces]
+        lookups = (self.statement.program_lookups()
+                   if hasattr(self.statement, "program_lookups") else None)
         s["witness_s"] = time.perf_counter() - t
 
         # the cells' configurations pass no options: the engine's defaults
         self.engine = TorchEngine(self.device,
                                   **self.config.get("engine", {}))
-        degree = self.statement.columns * self.statement.rows
+        degree = max(tr.columns * tr.rows for tr in traces)
         _sync(self.device)
         t = time.perf_counter()
         self.kzg = KZG.device_setup(self.engine, degree, tau=self.tau)
@@ -135,8 +144,9 @@ class Cell:
         s["crs_s"] = time.perf_counter() - t
 
         t = time.perf_counter()
-        self.hp = HyperPlonk.preprocess([self.circuit],
-                                        MultilinearPCS(self.kzg))
+        self.hp = HyperPlonk.preprocess(self.circuits,
+                                        MultilinearPCS(self.kzg),
+                                        lookups=lookups)
         _sync(self.device)
         s["preprocess_s"] = time.perf_counter() - t
 
@@ -152,7 +162,7 @@ class Cell:
     # -- proving --------------------------------------------------------------
 
     def prove(self) -> bytes:
-        proof = self.hp.prove([self._trace_witness(columns=self.witness)])
+        proof = self.hp.prove(self.witnesses)
         return self._serialize(proof)
 
     def keep(self, data: bytes) -> None:
@@ -307,7 +317,7 @@ class Cell:
 
     def release(self) -> None:
         """The program's state freed before the reference runs."""
-        for k in ("hp", "kzg", "engine", "circuit"):
+        for k in ("hp", "kzg", "engine", "circuits", "witnesses"):
             if hasattr(self, k):
                 delattr(self, k)
         gc.collect()

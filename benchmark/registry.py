@@ -6,13 +6,31 @@ new one is a new file and an entry in `BENCHMARK.json`, never an edit.
     workloads/<cell>.json    config, traffic, warm-up and traced proves
     configs/<config>.json    circuit, rows, seed use; an optional `engine`
                              holds TorchEngine options (the cells' have
-                             none, so they run on its defaults)
+                             none, so they run on its defaults), an
+                             optional `circuit_args` more keyword
+                             arguments of the circuit's `from_seed`
     traffic/<traffic>.json   the mix (`seq`: proves back to back, one in
                              flight, a loop with no parameters)
-    circuits/<circuit>.py    a `Statement` class: witness, constraints, ...
+    circuits/<circuit>.py    a `Statement` class (below)
     metrics/<metric>.py      `read(record) -> float | None`
     kernels/*.txt            names of the program's hand-written kernels
     peaks.json               the card's peak rates, by device name
+
+A circuit module's `Statement.from_seed(log2_rows, seed, **circuit_args)`
+makes the statement.  A statement of one trace has the trace's members:
+`rows`, `columns`, `constraint_degree`, `witness()` (the columns as lists
+of ints), `public_columns()`, `constraints(e)` (the zero check's
+expressions at column values e, in the order the program batches them),
+`permutation()` (the id and copy maps) and `program_circuit()` (the same
+circuit built by the program's frontend).  A statement of several traces
+offers `traces()`, a list of such per-trace objects in the program's
+order, and may offer `lookups()`, the cross-table lookups as plain tuples
+(src_trace, src_cols, dst_trace, dst_cols): every row tuple of the source
+columns is among the destination's.  Then it also offers
+`program_lookups()`, the program's `CrossTableLookup` objects for them.
+`program_circuit` and `program_lookups` are the only members that import
+the program; the reference reads the rest.  A statement without
+`traces()` is its own single trace (`reference/verify.py: traces_of`).
 """
 
 from __future__ import annotations
