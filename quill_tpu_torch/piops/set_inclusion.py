@@ -18,6 +18,7 @@ from ..fields.bn254 import R
 from ..fields.scalar import inv
 from ..pcs import EvaluationClaim
 from ..transcript.transcript import Transcript
+from ..utils.profiling import phase
 from . import sumcheck
 from .virtual_poly import Const, Store, VirtualRef
 from .zerocheck import eq_eval
@@ -64,17 +65,19 @@ def prove(store_left: Store, h_left: VirtualRef,
 
     logup_eval_point = transcript.draw_field_element()
 
-    h_left_evals = store_left.eval_expr_table(h_left)
-    h_right_evals = store_right.eval_expr_table(h_right)
-    u_left = engine.add_scalar(h_left_evals, logup_eval_point)
-    u_right = engine.add_scalar(h_right_evals, logup_eval_point)
-    denom_left = engine.batch_inverse(u_left)
-    denom_right = engine.batch_inverse(u_right)
-    mult_evals = store_right.eval_expr_table(multiplicities)
-    denom_right = engine.mul(denom_right, mult_evals)
+    with phase("set_inclusion/log_derivative_tables"):
+        h_left_evals = store_left.eval_expr_table(h_left)
+        h_right_evals = store_right.eval_expr_table(h_right)
+        u_left = engine.add_scalar(h_left_evals, logup_eval_point)
+        u_right = engine.add_scalar(h_right_evals, logup_eval_point)
+        denom_left = engine.batch_inverse(u_left)
+        denom_right = engine.batch_inverse(u_right)
+        mult_evals = store_right.eval_expr_table(multiplicities)
+        denom_right = engine.mul(denom_right, mult_evals)
 
-    commitment_left, commitment_right = pcs.commit_many(
-        [denom_left, denom_right])
+    with phase("set_inclusion/commits"):
+        commitment_left, commitment_right = pcs.commit_many(
+            [denom_left, denom_right])
     transcript.append_g1(commitment_left)
     transcript.append_g1(commitment_right)
 
@@ -89,7 +92,8 @@ def prove(store_left: Store, h_left: VirtualRef,
     h_left_expr = store_left.get_expr(h_left)
     h_right_expr = store_right.get_expr(h_right)
 
-    eq_left = store_left.allocate_polynomial(engine.eq_table(z1))
+    with phase("set_inclusion/eq_table"):
+        eq_left = store_left.allocate_polynomial(engine.eq_table(z1))
     left_expr = (denom_left_ref.to_expr()
                  * (Const(logup_eval_point) + h_left_expr)
                  - Const(1))
@@ -97,16 +101,18 @@ def prove(store_left: Store, h_left: VirtualRef,
         + denom_left_ref.to_expr() * Const(alpha)
     sumcheck_virtual_left = store_left.new_virtual_from_expr(left_expr)
 
-    claimed_sum_left = engine.vsum(denom_left) * alpha % R
-    sumcheck_proof_left, claim_left = sumcheck.prove(
-        num_vars_left, store_left, sumcheck_virtual_left, claimed_sum_left,
-        transcript)
+    with phase("set_inclusion/sumcheck"):
+        claimed_sum_left = engine.vsum(denom_left) * alpha % R
+        sumcheck_proof_left, claim_left = sumcheck.prove(
+            num_vars_left, store_left, sumcheck_virtual_left,
+            claimed_sum_left, transcript)
 
     # right sumcheck challenges
     z2 = [transcript.draw_field_element() for _ in range(num_vars_right)]
     beta = transcript.draw_field_element()
 
-    eq_right = store_right.allocate_polynomial(engine.eq_table(z2))
+    with phase("set_inclusion/eq_table"):
+        eq_right = store_right.allocate_polynomial(engine.eq_table(z2))
     right_expr = (denom_right_ref.to_expr()
                   * (Const(logup_eval_point) + h_right_expr)
                   - m_expr)
@@ -114,14 +120,16 @@ def prove(store_left: Store, h_left: VirtualRef,
         + denom_right_ref.to_expr() * Const(beta)
     sumcheck_virtual_right = store_right.new_virtual_from_expr(right_expr)
 
-    claimed_sum_right = engine.vsum(denom_right) * beta % R
-    sumcheck_proof_right, claim_right = sumcheck.prove(
-        num_vars_right, store_right, sumcheck_virtual_right, claimed_sum_right,
-        transcript)
+    with phase("set_inclusion/sumcheck"):
+        claimed_sum_right = engine.vsum(denom_right) * beta % R
+        sumcheck_proof_right, claim_right = sumcheck.prove(
+            num_vars_right, store_right, sumcheck_virtual_right,
+            claimed_sum_right, transcript)
 
-    opening_left, opening_right = pcs.open_many(
-        [(denom_left, claim_left.point), (denom_right, claim_right.point)],
-        transcript)
+    with phase("set_inclusion/opens"):
+        opening_left, opening_right = pcs.open_many(
+            [(denom_left, claim_left.point),
+             (denom_right, claim_right.point)], transcript)
 
     proof = SetInclusionProof(
         denom_left_commitment=commitment_left,

@@ -126,6 +126,9 @@ class HyperPlonk:
         self.trace_pks = trace_pks
         self.pcs = pcs
         self.lookups = list(lookups or [])
+        # lookups proved, and their source and table rows, over every prove
+        self.lookup_counts = dict.fromkeys(
+            ("lookups", "source_rows", "table_rows"), 0)
 
     # -- preprocess ---------------------------------------------------------
 
@@ -295,30 +298,32 @@ class HyperPlonk:
                     for c in lk.dst_cols]
         n_src, n_dst = src_circ.num_rows(), dst_circ.num_rows()
 
-        # multiplicities: count each source tuple at its FIRST matching
-        # destination row (duplicate destination tuples carry zero)
-        first_at: dict = {}
-        for j in range(n_dst):
-            key = tuple(col[j] % R for col in dst_cols)
-            first_at.setdefault(key, j)
-        mult = [0] * n_dst
-        for i in range(n_src):
-            key = tuple(col[i] % R for col in src_cols)
-            j = first_at.get(key)
-            if j is not None:
-                mult[j] += 1
+        with phase("prove/lookup_multiplicities"):
+            # multiplicities: count each source tuple at its FIRST matching
+            # destination row (duplicate destination tuples carry zero)
+            first_at: dict = {}
+            for j in range(n_dst):
+                key = tuple(col[j] % R for col in dst_cols)
+                first_at.setdefault(key, j)
+            mult = [0] * n_dst
+            for i in range(n_src):
+                key = tuple(col[i] % R for col in src_cols)
+                j = first_at.get(key)
+                if j is not None:
+                    mult[j] += 1
 
-        src_store = Store(engine, n_src.bit_length() - 1)
-        dst_store = Store(engine, n_dst.bit_length() - 1)
-        src_refs = [src_store.new_virtual_from_input(
-            src_store.allocate_polynomial(col)) for col in src_cols]
-        dst_refs = [dst_store.new_virtual_from_input(
-            dst_store.allocate_polynomial(col)) for col in dst_cols]
-        mult_vec = engine.vec_from_ints(mult)
-        mult_ref = dst_store.new_virtual_from_input(
-            dst_store.allocate_polynomial(mult))
+            src_store = Store(engine, n_src.bit_length() - 1)
+            dst_store = Store(engine, n_dst.bit_length() - 1)
+            src_refs = [src_store.new_virtual_from_input(
+                src_store.allocate_polynomial(col)) for col in src_cols]
+            dst_refs = [dst_store.new_virtual_from_input(
+                dst_store.allocate_polynomial(col)) for col in dst_cols]
+            mult_vec = engine.vec_from_ints(mult)
+            mult_ref = dst_store.new_virtual_from_input(
+                dst_store.allocate_polynomial(mult))
 
-        mult_commitment = pcs.commit(mult_vec)
+        with phase("prove/lookup_commit"):
+            mult_commitment = pcs.commit(mult_vec)
         transcript.append_g1(mult_commitment)
 
         with phase("prove/lookup_piop"):
@@ -340,6 +345,10 @@ class HyperPlonk:
                 pcs, dst_items + [(mult_vec, list(points.right))],
                 transcript)
 
+        counts = self.lookup_counts
+        counts["lookups"] += 1
+        counts["source_rows"] += n_src
+        counts["table_rows"] += n_dst
         return CrossTableLookupProof(
             multiplicities_commitment=mult_commitment,
             lookup_proof=lk_proof,
