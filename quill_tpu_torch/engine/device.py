@@ -115,7 +115,7 @@ class TorchEngine:
         return TVec(t, n)
 
     def vec_from_ints(self, xs):
-        xs = list(xs)
+        xs = xs if type(xs) is list else list(xs)
         if len(xs) < self.min_device_size:
             return self.host.vec_from_ints(xs)
         return TVec(fd.from_ints(xs, FR, self.device))
@@ -140,6 +140,15 @@ class TorchEngine:
                           device=self.device)
         out[:length] = self._tensor(v)
         return TVec(out)
+
+    def view(self, v, start: int, stop: int):
+        """Rows [start, stop) of a device vector as a vector that shares
+        its storage, or None where `v` is a host vector or the slice is
+        below the device size.  Nothing downstream writes into its inputs,
+        so readers can share one upload."""
+        if not self._dev(v) or stop - start < self.min_device_size:
+            return None
+        return TVec(v.rows()[start:stop])
 
     def reverse(self, v):
         if not self._dev(v):

@@ -401,15 +401,86 @@ def batch_inverse(t: torch.Tensor, field: Field = FR) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def ints_to_tensor(xs, device="cpu") -> torch.Tensor:
-    """Ints in [0, 2^256) -> (n, 8) int32 limbs (no Montgomery)."""
-    xs = list(xs)
-    if not xs:
-        return torch.zeros((0, NLIMB), dtype=torch.int32,
-                           device=torch.device(device))
+# values converted from Python ints by each path, over the process: `bulk`
+# one C call over the list (`native/pyints.c`), `python` int by int
+CONVERSIONS = {"bulk": 0, "python": 0}
+
+_BULK: dict = {}
+
+
+def _bulk_fn():
+    """`quill_ints_to_words` of `native/pyints.c`, built at first use and
+    checked against the Python path once; None where it cannot be built."""
+    if "fn" not in _BULK:
+        import ctypes
+
+        from ..kernels import build
+
+        fn = None
+        try:
+            lib = ctypes.PyDLL(str(build.native_lib("pyints")))
+            fn = lib.quill_ints_to_words
+            fn.argtypes = [ctypes.py_object, ctypes.c_void_p,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_ssize_t
+            probe = [0, 1, (1 << 64) - 1, 1 << 64, R - 1, R, (1 << 256) - 1,
+                     3 << 200]
+            out = torch.empty((len(probe), NLIMB), dtype=torch.int32)
+            mod = _mod_words(R)
+            if (fn(probe, out.data_ptr(), mod.data_ptr()) != len(probe)
+                    or _limbs_python([x % R for x in probe]).tolist()
+                    != out.tolist()):
+                raise RuntimeError("native pyints self-check failed")
+        except Exception:
+            fn = None
+        _BULK["fn"] = fn
+    return _BULK["fn"]
+
+
+@lru_cache(maxsize=None)
+def _mod_words(modulus: int) -> torch.Tensor:
+    return torch.tensor(np.frombuffer(modulus.to_bytes(32, "little"),
+                                      dtype="<u4").view(np.int32))
+
+
+def _limbs_python(xs: list) -> torch.Tensor:
     buf = b"".join(int(x).to_bytes(32, "little") for x in xs)
     arr = np.frombuffer(buf, dtype="<u4").view(np.int32).reshape(-1, NLIMB)
-    return torch.from_numpy(arr.copy()).to(torch.device(device))
+    return torch.from_numpy(arr.copy())
+
+
+def _limbs_bulk(xs: list, modulus: int | None) -> torch.Tensor | None:
+    """(n, 8) int32 host limbs of a list of exact ints in [0, 2^256),
+    reduced below `modulus` if given, in one C call; None where the list
+    holds anything else or the library is missing."""
+    fn = _bulk_fn()
+    if fn is None:
+        return None
+    out = torch.empty((len(xs), NLIMB), dtype=torch.int32)
+    mod = None if modulus is None else _mod_words(modulus).data_ptr()
+    if fn(xs, out.data_ptr(), mod) != len(xs):
+        return None
+    return out
+
+
+def _limbs(xs, modulus: int | None) -> torch.Tensor:
+    """(n, 8) int32 host limbs of `xs`, reduced below `modulus` if given:
+    in one C call where `xs` is a list of exact ints in [0, 2^256), else
+    value by value (`CONVERSIONS` counts each path)."""
+    xs = xs if type(xs) is list else list(xs)
+    limbs = _limbs_bulk(xs, modulus)
+    if limbs is not None:
+        CONVERSIONS["bulk"] += len(xs)
+        return limbs
+    CONVERSIONS["python"] += len(xs)
+    if modulus is not None:
+        xs = [int(x) % modulus for x in xs]
+    return _limbs_python(xs)
+
+
+def ints_to_tensor(xs, device="cpu") -> torch.Tensor:
+    """Ints in [0, 2^256) -> (n, 8) int32 limbs (no Montgomery)."""
+    return _limbs(xs, None).to(torch.device(device))
 
 
 def tensor_to_ints(t: torch.Tensor) -> list[int]:
@@ -421,8 +492,8 @@ def tensor_to_ints(t: torch.Tensor) -> list[int]:
 
 def from_ints(xs, field: Field = FR, device="cpu") -> torch.Tensor:
     """Ints (any range) -> (n, 8) Montgomery tensor on `device`."""
-    m = field.modulus
-    return to_mont(ints_to_tensor([int(x) % m for x in xs], device), field)
+    return to_mont(_limbs(xs, field.modulus).to(torch.device(device)),
+                   field)
 
 
 def to_ints(t: torch.Tensor, field: Field = FR) -> list[int]:

@@ -4,8 +4,9 @@ Role of `quill_tpu/utils/aotcache.py` in the TPU build: compile once, reuse.
 Each CUDA source in `quill_tpu_torch/csrc/` becomes one shared library with
 a plain C interface, built by `nvcc` for `sm_90a` at first use and loaded
 with ctypes.  The host C libraries of `native/` (G1 arithmetic for the CRS
-and the host MSMs, BLAKE3 for the transcript) are built the same way with
-`gcc` (`native_lib`).  Outputs go to `build/quill_tpu_torch/<hash>/` at the
+and the host MSMs, BLAKE3 for the transcript, the bulk conversion of
+Python ints to field limbs against this interpreter's headers) are built
+the same way with `gcc` (`native_lib`).  Outputs go to `build/quill_tpu_torch/<hash>/` at the
 root of the checkout, keyed by the sources and flags, under a file lock so
 that concurrent processes build once.  Nothing outside the repository's own
 sources is compiled.
@@ -48,7 +49,10 @@ HOST_SOURCE = "bn254_host.cpp"
 NATIVE_LIBS = {
     "ec_g1": "ec_g1.c",
     "blake3": "blake3.c",
+    "pyints": "pyints.c",
 }
+# host libraries that include Python.h (loaded with ctypes.PyDLL)
+PYTHON_LIBS = ("pyints",)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -204,7 +208,12 @@ def build_host() -> Path:
 
 def native_lib(name: str) -> Path:
     """The host C library `name` of NATIVE_LIBS, built at first use."""
-    return _host_build(name, "gcc", GCC_FLAGS, NATIVE / NATIVE_LIBS[name])
+    flags = list(GCC_FLAGS)
+    if name in PYTHON_LIBS:
+        import sysconfig
+
+        flags += ["-I", sysconfig.get_paths()["include"]]
+    return _host_build(name, "gcc", flags, NATIVE / NATIVE_LIBS[name])
 
 
 def stream_ptr() -> int:

@@ -5,7 +5,10 @@ Counterpart of `quill-zkvm/hyperplonk/src/proof/circuit.rs:6-59`.
 indices 0..num_cols refer to witness columns and
 num_cols..num_cols+num_public_columns to public columns; id/permutation
 mappings MUST NOT contain zero (zero-padding soundness trap explained at
-`circuit.rs:35-52`, hence the frontend's +1 shift).
+`circuit.rs:35-52`, hence the frontend's +1 shift).  A circuit may also
+offer `check_constraints_device(engine, columns, witness)`, the same check
+over the witness columns as device vectors (the transition frontend does);
+the prover calls it where it has such columns.
 """
 
 from __future__ import annotations

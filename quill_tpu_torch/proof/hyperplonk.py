@@ -95,10 +95,8 @@ class TracePK:
 
     id_poly: object          # engine vec, rows*cols cells
     permutation_poly: object
-    public_values: list      # retained for API parity with `proof.rs:50-54`;
-    # held as None here -- the prover re-derives public columns from the
-    # circuit (`circuit.public_values()`), and keeping rows*cols-padded
-    # device vectors alive would idle-hold O(trace) HBM per trace
+    public_values: list      # engine vecs, one a public column, rows cells:
+    # the zero check's store and the public openings read them
 
 
 @dataclass
@@ -129,6 +127,11 @@ class HyperPlonk:
         # lookups proved, and their source and table rows, over every prove
         self.lookup_counts = dict.fromkeys(
             ("lookups", "source_rows", "table_rows"), 0)
+        # witness values converted to engine vectors, and traces whose
+        # constraints were checked on the device and on the host, over
+        # every prove
+        self.witness_counts = dict.fromkeys(
+            ("values_uploaded", "device_checks", "host_checks"), 0)
 
     # -- preprocess ---------------------------------------------------------
 
@@ -141,11 +144,12 @@ class HyperPlonk:
         assert cols & (cols - 1) == 0, "Number of columns must be a power of two"
         trace_size = rows * cols
 
-        public_values = []
+        public_values, public_padded = [], []
         for col in circuit.public_values():
             assert len(col) == rows, "Public column length mismatch"
-            padded = list(col) + [0] * (trace_size - rows)
-            public_values.append(engine.vec_from_ints(padded))
+            vec = engine.vec_from_ints(col)
+            public_values.append(vec)
+            public_padded.append(engine.pad(vec, trace_size))
 
         id_evals, permutation_evals = circuit.permutation()
         assert len(id_evals) == trace_size, "ID polynomial length mismatch"
@@ -156,14 +160,14 @@ class HyperPlonk:
 
         # all preprocessing commitments in one fused multi-MSM batch
         *public_commitments, id_commitment, permutation_commitment = \
-            pcs.commit_many(public_values + [id_vec, perm_vec])
+            pcs.commit_many(public_padded + [id_vec, perm_vec])
 
         vk = TraceVK(circuit=circuit,
                      public_columns_commitments=public_commitments,
                      id_commitment=id_commitment,
                      permutation_commitment=permutation_commitment)
         pk = TracePK(id_poly=id_vec, permutation_poly=perm_vec,
-                     public_values=None)
+                     public_values=public_values)
         return pk, vk
 
     @staticmethod
@@ -195,21 +199,22 @@ class HyperPlonk:
     # -- prove --------------------------------------------------------------
 
     def _prove_trace(self, witness: list[list[int]], full_witness,
-                     transcript: Transcript, pk: TracePK, circuit: Circuit
-                     ) -> TraceProof:
-        """`prove_trace` (`proof.rs:145-237`)."""
+                     columns: list | None, transcript: Transcript,
+                     pk: TracePK, circuit: Circuit) -> TraceProof:
+        """`prove_trace` (`proof.rs:145-237`).  `columns`: the witness
+        columns as views of `full_witness`, or None where they are
+        converted from `witness` here (host vectors)."""
         pcs = self.pcs
         engine = pcs.engine
         rows, cols = circuit.num_rows(), circuit.num_cols()
         log2_rows = rows.bit_length() - 1
         log2_cols = cols.bit_length() - 1
 
-        publics = circuit.public_values()
         store = Store(engine, log2_rows)
         with phase("prove/witness_upload"):
-            for column in witness:
+            for column in (witness if columns is None else columns):
                 store.allocate_polynomial(column)
-            for public in publics:
+            for public in pk.public_values:
                 store.allocate_polynomial(public)
 
         # alpha-batch all constraints (`proof.rs:166-175`)
@@ -253,9 +258,8 @@ class HyperPlonk:
         # public-column openings at the zero-check point (`proof.rs:213-219`)
         with phase("prove/public_openings"):
             openings_public = _open_grouped(
-                pcs, [(engine.vec_from_ints(publics[i]), list(zc_claim.point))
-                      for i in range(circuit.num_public_columns())],
-                transcript)
+                pcs, [(public, list(zc_claim.point))
+                      for public in pk.public_values], transcript)
 
         # id / permutation / trace openings at the permutation-check point
         # (`proof.rs:222-226`): one fused pipeline, shared eq table
@@ -278,7 +282,8 @@ class HyperPlonk:
 
     def _prove_lookup(self, lk: CrossTableLookup,
                       witness_traces: list[TraceWitness], full_traces,
-                      transcript: Transcript) -> CrossTableLookupProof:
+                      columns: list, transcript: Transcript
+                      ) -> CrossTableLookupProof:
         """One cross-table lookup argument.  Transcript event order (ours to
         define -- the reference never wires lookups in):
           1. multiplicities commitment (before the logup challenge draw);
@@ -287,7 +292,9 @@ class HyperPlonk:
              order), destination-column openings, multiplicities opening.
         The prover does NOT pre-check inclusion: a witness violating the
         lookup yields an honest proof that fails verification (same posture
-        as the reference's multiset tests, `multiset_check.rs:404`)."""
+        as the reference's multiset tests, `multiset_check.rs:404`).
+        `columns[t]`: trace t's columns as views of `full_traces[t]`, or
+        None where they are converted from the witness here."""
         pcs = self.pcs
         engine = pcs.engine
         src_circ = self.trace_vks[lk.src_trace].circuit
@@ -315,12 +322,14 @@ class HyperPlonk:
             src_store = Store(engine, n_src.bit_length() - 1)
             dst_store = Store(engine, n_dst.bit_length() - 1)
             src_refs = [src_store.new_virtual_from_input(
-                src_store.allocate_polynomial(col)) for col in src_cols]
+                src_store.allocate_polynomial(col)) for col in _trace_columns(
+                    columns[lk.src_trace], src_cols, lk.src_cols)]
             dst_refs = [dst_store.new_virtual_from_input(
-                dst_store.allocate_polynomial(col)) for col in dst_cols]
+                dst_store.allocate_polynomial(col)) for col in _trace_columns(
+                    columns[lk.dst_trace], dst_cols, lk.dst_cols)]
             mult_vec = engine.vec_from_ints(mult)
             mult_ref = dst_store.new_virtual_from_input(
-                dst_store.allocate_polynomial(mult))
+                dst_store.allocate_polynomial(mult_vec))
 
         with phase("prove/lookup_commit"):
             mult_commitment = pcs.commit(mult_vec)
@@ -368,24 +377,38 @@ class HyperPlonk:
         engine = pcs.engine
         transcript = Transcript(DOMAIN)
 
-        full_traces = []
+        counts = self.witness_counts
+        full_traces, columns = [], []
         for trace_witness, vk in zip(witness_traces, self.trace_vks):
             witness = trace_witness.columns
             circuit = vk.circuit
+            rows = circuit.num_rows()
             assert len(witness) == circuit.num_cols(), "Witness columns length mismatch"
             for col in witness:
-                assert len(col) == circuit.num_rows(), \
-                    "Witness column row length mismatch"
+                assert len(col) == rows, "Witness column row length mismatch"
 
-            with phase("prove/check_constraints"):
-                circuit.check_constraints(witness)
-
-            # column-major flattening (`proof.rs:270`)
+            # column-major flattening (`proof.rs:270`), converted once: every
+            # reader of the witness in this prove reads this vector or a
+            # view of one of its columns
             with phase("prove/witness_upload"):
                 flat: list[int] = []
                 for col in witness:
                     flat.extend(col)
-                full_traces.append(engine.vec_from_ints(flat))
+                full = engine.vec_from_ints(flat)
+                counts["values_uploaded"] += len(flat)
+                views = _column_views(engine, full, rows, len(witness))
+            full_traces.append(full)
+            columns.append(views)
+
+            with phase("prove/check_constraints"):
+                device_check = getattr(circuit, "check_constraints_device",
+                                       None)
+                if views is not None and device_check is not None:
+                    counts["device_checks"] += 1
+                    device_check(engine, views, witness)
+                else:
+                    counts["host_checks"] += 1
+                    circuit.check_constraints(witness)
 
         # the per-trace appends (`proof.rs:279-280`) only interleave
         # appends, never draws, so all witness commitments batch into one
@@ -398,11 +421,11 @@ class HyperPlonk:
         trace_proofs = []
         for i, trace_witness in enumerate(witness_traces):
             trace_proofs.append(self._prove_trace(
-                trace_witness.columns, full_traces[i], transcript,
-                self.trace_pks[i], self.trace_vks[i].circuit))
+                trace_witness.columns, full_traces[i], columns[i],
+                transcript, self.trace_pks[i], self.trace_vks[i].circuit))
 
         lookup_proofs = [self._prove_lookup(lk, witness_traces, full_traces,
-                                            transcript)
+                                            columns, transcript)
                          for lk in self.lookups]
 
         return HyperPlonkProof(witness_commitment=trace_commitments,
@@ -439,6 +462,24 @@ def _open_grouped(pcs, items: list, transcript) -> list:
     for i in range(0, len(items), bs):
         out.extend(pcs.open_many(items[i:i + bs], transcript))
     return out
+
+
+def _column_views(engine, full, rows: int, cols: int) -> list | None:
+    """Column c of a column-major trace, `full[c * rows:(c + 1) * rows]`,
+    as a view that shares `full`'s storage, for each column; None where
+    the engine has no such views or the columns are below its device
+    size (they are then converted from the witness as host vectors)."""
+    view = getattr(engine, "view", None)
+    if view is None:
+        return None
+    views = [view(full, c * rows, (c + 1) * rows) for c in range(cols)]
+    return None if any(v is None for v in views) else views
+
+
+def _trace_columns(views: list | None, lists: list, cols: list[int]) -> list:
+    """The columns `cols` of a trace: its views where it has them, else
+    the witness's lists (`lists`, in the order of `cols`)."""
+    return lists if views is None else [views[c] for c in cols]
 
 
 def _extend_point(point: list[int], col: int, log2_cols: int) -> list[int]:
