@@ -261,6 +261,24 @@ def batch_to_affine(points: list[Jacobian]) -> list[Affine]:
     return out
 
 
+def g1_tau_powers(tau: int, count: int) -> list[Affine]:
+    """[G, tau G, ..., tau^(count - 1) G] as affine points: the powers of
+    tau as scalars, then one scalar product a point (native C backend when
+    built)."""
+    from ..fields.bn254 import R
+    from . import native_ec
+
+    powers = [1] * count
+    for i in range(1, count):
+        powers[i] = powers[i - 1] * tau % R
+    g1 = g1_generator()
+    if native_ec.available():
+        jac = native_ec.scalar_mul_many(g1.to_affine(), powers)
+    else:
+        jac = [g1.scalar_mul(p) for p in powers]
+    return batch_to_affine(jac)
+
+
 # -- G2 convenience ---------------------------------------------------------
 
 

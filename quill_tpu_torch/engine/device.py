@@ -1,12 +1,14 @@
-"""PyTorch execution engine: the `engine/host.py` method set on the GPU.
+"""PyTorch execution engine: the engine contract (`engine/contract.py`) on
+the GPU.
 
 Counterpart of `quill_tpu/engine/device.py: TpuEngine`.  Everything
-above the engine (`piops/`, `pcs/`, `proof/`, `transcript/`) is the port's
-own copy of the JAX package's host modules; this class is what it runs on.
+above the engine (`piops/`, `pcs/`, `proof/`, `frontend/`,
+`transcript/`) calls only the contract's methods; this class is what it
+runs on.
 
 - A device vector (`TVec`) is an `(n, 8)` int32 tensor of Fr elements in
   Montgomery form (`fields/device.py`) plus a logical length; rows past the
-  length are zero.  `pcs/kzg.py` sends a batch's device vectors with
+  length are zero.  `quotient_many` sends a batch's device vectors with
   x != 0 through `engine/quotient.py` (kernel M), all of them in input
   order (the JAX copy groups its DVecs by their count of 2^16-element
   chunks, for its fixed XLA shapes).
@@ -23,13 +25,18 @@ own copy of the JAX package's host modules; this class is what it runs on.
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from ..ec import msm as msm_mod
 from ..ec import msm5, msm6, msm8
+from ..ec.fixed_base import device_tau_powers
 from ..fields import device as fd
 from ..fields.bn254 import R
 from ..fields.device import FR
+from ..kernels import build
 from ..poly import ntt
 from ..utils.profiling import phase
 from . import sumcheck
@@ -220,6 +227,23 @@ class TorchEngine:
             return self.host.batch_inverse(v)
         return TVec(fd.batch_inverse(v.rows(), FR))
 
+    def first_nonzero(self, vecs: list, pairs: list) -> list:
+        """The first non-zero row of each vector, then for each pair
+        (a, b) the first row i with a[i] != b[i + 1] (a compare of the
+        canonical Montgomery limbs); None where there is none.  One
+        readback where no row is found."""
+        if not any(self._dev(v) for v in vecs + [v for p in pairs
+                                                  for v in p]):
+            return self.host.first_nonzero(vecs, pairs)
+        masks = [(self._tensor(v) != 0).any(-1) for v in vecs]
+        masks += [(self._tensor(a)[:-1] != self._tensor(b)[1:]).any(-1)
+                  for a, b in pairs]
+        if not masks:
+            return []
+        found = torch.stack([m.any() for m in masks]).tolist()
+        return [int(m.nonzero()[0]) if f else None
+                for m, f in zip(masks, found)]
+
     # -- multilinear ----------------------------------------------------------
 
     def eq_table(self, point: list[int]):
@@ -311,13 +335,33 @@ class TorchEngine:
 
         return quotient_many_device(self, [(coeffs, x)])[0]
 
+    def quotient_many(self, jobs: list) -> list:
+        """(y, q) per job, in input order.  Device vectors with x != 0 go,
+        in input order, through `engine/quotient.py: quotient_many_device`
+        (kernel M on the card, which takes mixed lengths in one launch and
+        splits at MAX_JOBS); every other job takes `quotient_by_linear`
+        (identical results)."""
+        from . import quotient
+
+        results: list = [None] * len(jobs)
+        idxs = []
+        for i, (poly, x) in enumerate(jobs):
+            if self._dev(poly) and int(x) % R != 0:
+                idxs.append(i)
+            else:
+                results[i] = self.quotient_by_linear(poly, x)
+        if idxs:
+            outs = quotient.quotient_many_device(self,
+                                                 [jobs[i] for i in idxs])
+            for i, out in zip(idxs, outs):
+                results[i] = out
+        return results
+
     def s_polynomial(self, p1, p2):
         """IPA S polynomial with ONE product (`engine/device.py:864-885`):
         h = f * rev(g), S[k] = h[n + k] + h[n - 2 - k], k < n - 1."""
-        from ..pcs.ipa import s_polynomial_generic
-
         if not (self._dev(p1) or self._dev(p2)):
-            return s_polynomial_generic(self, p1, p2)
+            return self.host.s_polynomial(p1, p2)
         n = max(self.vec_len(p1), self.vec_len(p2))
         f = self._tensor(self.pad(p1, n))
         g = self._tensor(self.pad(p2, n))
@@ -327,6 +371,29 @@ class TorchEngine:
 
     def load_points(self, affines: list):
         return msm_mod.load_basis(affines, self.device)
+
+    def tau_basis(self, tau: int, count: int):
+        """[G, tau G, ..., tau^(count - 1) G] made on the device by
+        fixed-base products (`ec/fixed_base.py`, kernel J), the points of
+        the host setup.  The (count, 2, 8) affine tensor is cached on disk
+        (`build.crs_cache_dir`)."""
+        path = _crs_cache_path(tau, count)
+        if path is not None and path.exists():
+            xy = torch.from_numpy(np.load(path)).to(self.device)
+        else:
+            xy = device_tau_powers(tau, count, self.device)
+            if path is not None:
+                try:
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+                    with open(tmp, "wb") as f:
+                        np.save(f, xy.cpu().numpy())
+                    tmp.replace(path)
+                except OSError:
+                    pass
+        return msm_mod.TorchBasis(
+            xy=xy, inf=torch.zeros(count, dtype=torch.bool,
+                                   device=self.device), length=count)
 
     def basis_slice(self, basis, n: int):
         return msm_mod.slice_basis(basis, n)
@@ -400,3 +467,17 @@ class TorchEngine:
                 self.msm_counts["small_batches"] += 1
                 out.extend(msm5.msm_batch(widest, part)[:real])
         return out
+
+
+def _crs_cache_path(tau: int, count: int):
+    """On-disk cache path for a device-made CRS (deterministic in (tau,
+    count)); the port's own file name, since it stores its own layout."""
+    import hashlib
+
+    base = build.crs_cache_dir()
+    if base is None:
+        return None
+    tag = hashlib.sha256(
+        b"crs" + tau.to_bytes(32, "little") + count.to_bytes(8, "little")
+    ).hexdigest()[:24]
+    return base / f"crs_{tag}_{count}_torch.npy"

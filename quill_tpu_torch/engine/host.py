@@ -1,6 +1,7 @@
 """Host (CPU, exact big-int) execution engine.
 
-Implements the engine interface on numpy object arrays of Python ints.  It is
+Implements the engine contract (`engine/contract.py`) on numpy object
+arrays of Python ints.  It is
 (1) the exact oracle every TPU kernel is differentially tested against,
 (2) the execution tail for sizes below the device threshold, and
 (3) the verifier's compute backend.
@@ -46,6 +47,10 @@ class HostEngine:
         out[len(v):] = 0
         return out
 
+    def view(self, v, start: int, stop: int):
+        """None: host vectors share no storage."""
+        return None
+
     def reverse(self, v):
         return v[::-1].copy()
 
@@ -84,6 +89,16 @@ class HostEngine:
     def batch_inverse(self, v):
         out = _batch_inverse_list([int(x) for x in v], R)
         return self.vec_from_ints(out)
+
+    def first_nonzero(self, vecs: list, pairs: list) -> list:
+        """The first non-zero index of each vector, then for each pair
+        (a, b) the first i with a[i] != b[i + 1]; None where there is
+        none."""
+        out = [next((i for i, x in enumerate(v) if x != 0), None)
+               for v in vecs]
+        out += [next((i for i in range(len(a) - 1) if a[i] != b[i + 1]),
+                     None) for a, b in pairs]
+        return out
 
     # ---- multilinear ops --------------------------------------------------
 
@@ -145,6 +160,10 @@ class HostEngine:
             out.append(int(h.sum() % R))
         return out
 
+    def sumcheck_begin(self, tables, expr, degree: int):
+        """Round 0: the tables stay as they are."""
+        return tables, self.sumcheck_messages(tables, expr, degree)
+
     def sumcheck_round_fused(self, tables, expr, degree: int, r_prev: int):
         """Fold + next-round messages (reference semantics, unfused)."""
         used = sorted(expr.used_inputs())
@@ -180,6 +199,17 @@ class HostEngine:
         out = _unpack(prod, nbits, out_len)
         return self.vec_from_ints(out)
 
+    def s_polynomial(self, p1, p2):
+        """IPA S coefficients: the top half of f * rev(g) + rev(f) * g
+        (`quill-zkvm/pcs/src/ipa.rs:122-157`), both zero-padded to a
+        common length."""
+        n = max(self.vec_len(p1), self.vec_len(p2))
+        f, g = self.pad(p1, n), self.pad(p2, n)
+        h = self.add(self.poly_mul(f, self.reverse(g)),
+                     self.poly_mul(self.reverse(f), g))
+        # h has 2n - 1 coefficients; S = h[n:]
+        return self.slice(h, n, 2 * n - 1)
+
     def quotient_by_linear(self, coeffs, x: int):
         """Return (y, q) with y = p(x) and q = (p - y)/(X - x) by synthetic
         division (`quill-zkvm/pcs/src/kzg.rs:75-96` semantics)."""
@@ -195,11 +225,17 @@ class HostEngine:
         y = (acc * x + int(coeffs[0])) % R
         return y, self.vec_from_ints(q)
 
+    def quotient_many(self, jobs: list) -> list:
+        return [self.quotient_by_linear(p, x) for p, x in jobs]
+
     # ---- curve ops --------------------------------------------------------
 
     def load_points(self, affines: list):
         """CRS basis handle: on host just the affine list."""
         return list(affines)
+
+    def tau_basis(self, tau: int, count: int):
+        return self.load_points(curve.g1_tau_powers(tau, count))
 
     def basis_slice(self, basis, n: int):
         return basis[:n]

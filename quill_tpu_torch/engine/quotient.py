@@ -2,7 +2,7 @@
 (`csrc/quotient.cu`), with one host readback for the whole batch.
 
 Counterpart of `quill_tpu/engine/quotient.py: quotient_many_device`, which
-`pcs/kzg.py: KZG._quotients` calls for a batch's device vectors with x != 0
+`TorchEngine.quotient_many` calls for a batch's device vectors with x != 0
 (the JAX copy groups them by chunk count; the port sends them all, in input
 order).  For each opening (c, x), by Ruffini's recurrence:
 

@@ -136,47 +136,31 @@ class TransitionCircuit:
                                  witness: list[list[int]]) -> None:
         """`check_constraints` over the witness columns as device vectors
         (`columns`, of `engine`): each recurring constraint through
-        `engine.eval_expr` and a test for a non-zero row, each state cell
-        as a compare of next[:-1] with current[1:] on the canonical
-        Montgomery limbs, with one readback for the whole trace.  The
-        boundary constraints are checked on the host.  A failure raises
-        the host check's ValueError for the same first failure, in its
-        order (recurring constraints by row, then boundary, then state
-        cells), with the row values read from `witness`."""
-        import torch
-
+        `engine.eval_expr`, and each state cell as a compare of next[:-1]
+        with current[1:], in one `engine.first_nonzero` for the whole
+        trace.  The boundary constraints are checked on the host.  A
+        failure raises the host check's ValueError for the same first
+        failure, in its order (recurring constraints by row, then
+        boundary, then state cells), with the row values read from
+        `witness`."""
         rows = self.num_rows()
-        recurring = [self._nonzero_rows(engine, columns, c, rows)
-                     for c in self.recurring_constraints]
-        state = [(columns[cell.next.col].rows()[:-1]
-                  != columns[cell.current.col].rows()[1:]).any(-1)
-                 for cell in self.state_cells]
-        false = torch.zeros((), dtype=torch.bool,
-                            device=columns[0].rows().device)
-        bad_recurring, bad_state = torch.stack(
-            [torch.stack(m).any() if m else false
-             for m in (recurring, state)]).tolist()
-        if bad_recurring:
-            by_row = torch.stack(recurring)
-            row = int(by_row.any(0).nonzero()[0])
-            i = int(by_row[:, row].nonzero()[0])
-            raise _recurring_error(self.recurring_constraints[i], row,
-                                   [col[row] for col in witness])
+        firsts = engine.first_nonzero(
+            [engine.eval_expr(columns, c, rows)
+             for c in self.recurring_constraints],
+            [(columns[cell.next.col], columns[cell.current.col])
+             for cell in self.state_cells])
+        recurring = firsts[:len(self.recurring_constraints)]
+        bad = [r for r in recurring if r is not None]
+        if bad:
+            row = min(bad)
+            raise _recurring_error(
+                self.recurring_constraints[recurring.index(row)], row,
+                [col[row] for col in witness])
         self._check_boundary(witness)
-        if bad_state:
-            mask = next(m for m in state if bool(m.any()))
-            raise _state_error(int(mask.nonzero()[0]))
-
-    @staticmethod
-    def _nonzero_rows(engine, columns: list, constraint: Expr, rows: int):
-        """(rows,) bool tensor: where the constraint is not 0."""
-        import torch
-
-        if not constraint.used_inputs():
-            return torch.full((rows,), constraint.evaluate([]) % R != 0,
-                              device=columns[0].rows().device)
-        return (engine.eval_expr(columns, constraint, rows).rows()
-                != 0).any(-1)
+        state = next((r for r in firsts[len(recurring):] if r is not None),
+                     None)
+        if state is not None:
+            raise _state_error(state)
 
 
 def _recurring_error(constraint: Expr, row: int, row_values) -> ValueError:

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import os
 import shutil
 import subprocess
 from pathlib import Path
@@ -118,6 +119,15 @@ def build_dir() -> Path:
     files = [CSRC / n for n in HEADERS + [HOST_SOURCE] + sorted(LIBS.values())]
     files += [NATIVE / n for n in sorted(NATIVE_LIBS.values())]
     return BUILD_ROOT / _hash(files, NVCC_FLAGS + GCC_FLAGS)
+
+
+def crs_cache_dir() -> Path | None:
+    """Where made CRSs are cached, `build/crs/` of the checkout:
+    QUILL_CRS_CACHE=0 turns the cache off, QUILL_CRS_CACHE_DIR moves it."""
+    if os.environ.get("QUILL_CRS_CACHE", "1") == "0":
+        return None
+    return Path(os.environ.get("QUILL_CRS_CACHE_DIR",
+                               PKG.parent / "build" / "crs"))
 
 
 def _nvcc() -> str:

@@ -6,9 +6,9 @@ with a commitment to S and six KZG openings (the reference keeps the openings
 unbatched, `ipa.rs:86`; that layout is transcript-visible so we keep it too).
 
 The S polynomial is extracted from h(x) * x^d = f * rev(g) + rev(f) * g
-(`ipa.rs:114-157`); the product uses the engine's fast polynomial
-multiplication (NTT on device, Kronecker big-int on host) instead of the
-reference's O(d^2) naive product (`ipa.rs:147-148`).
+(`ipa.rs:114-157`) by `engine.s_polynomial`: one NTT product on the
+device, two Kronecker big-int products on the host, instead of the
+reference's O(d^2) naive products (`ipa.rs:147-148`).
 """
 
 from __future__ import annotations
@@ -36,37 +36,12 @@ class InnerProductProof:
     s_opening_inv: KZGOpeningProof
 
 
-def compute_s_polynomial(engine, poly1, poly2):
-    """S coefficients: the top half of (f * rev(g) + rev(f) * g)
-    (`ipa.rs:122-157`).  Polynomials are zero-padded to a common length.
-
-    Engines may provide `s_polynomial(p1, p2)` computing the same values
-    with ONE polynomial product via rev(f * rev(g)) = rev(f) * g (the
-    device engine does; halves the NTT work)."""
-    s_poly = getattr(engine, "s_polynomial", None)
-    if s_poly is not None:
-        return s_poly(poly1, poly2)
-    return s_polynomial_generic(engine, poly1, poly2)
-
-
-def s_polynomial_generic(engine, poly1, poly2):
-    la, lb = engine.vec_len(poly1), engine.vec_len(poly2)
-    max_len = max(la, lb)
-    p1 = engine.pad(poly1, max_len)
-    p2 = engine.pad(poly2, max_len)
-    p1_rev = engine.reverse(p1)
-    p2_rev = engine.reverse(p2)
-    h = engine.add(engine.poly_mul(p1, p2_rev), engine.poly_mul(p1_rev, p2))
-    # h has full length 2*max_len - 1; S = h[(len/2 + 1):] = h[max_len:]
-    return engine.slice(h, max_len, 2 * max_len - 1)
-
-
 def prove(engine, poly1, poly2, kzg: KZG, transcript: Transcript) -> InnerProductProof:
     """`InnerProductProof::prove` (`ipa.rs:59-112`).  ASSUMES commitments to
     the polynomials are already in the transcript."""
     inner_product = engine.inner(poly1, poly2)
 
-    s_poly = compute_s_polynomial(engine, poly1, poly2)
+    s_poly = engine.s_polynomial(poly1, poly2)
     s_commitment = kzg.commit(s_poly)
 
     transcript.append_field(inner_product)

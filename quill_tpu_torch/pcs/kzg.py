@@ -17,34 +17,13 @@ from dataclasses import dataclass
 from ..ec import curve
 from ..ec.pairing import pairing_check
 from ..fields.bn254 import R
+from ..kernels.build import crs_cache_dir
 
-
-def _crs_cache_dir():
-    """CRS disk-cache location, `build/crs/` of the checkout:
-    QUILL_CRS_CACHE=0 disables, QUILL_CRS_CACHE_DIR overrides it."""
-    import os
-
-    if os.environ.get("QUILL_CRS_CACHE", "1") == "0":
-        return None
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    return os.environ.get("QUILL_CRS_CACHE_DIR",
-                          os.path.join(root, "build", "crs"))
-
-
-def _crs_cache_path(tau: int, count: int):
-    """On-disk cache path for a device-made CRS (deterministic in (tau,
-    count)); the port's own file name, since it stores its own layout."""
-    import hashlib
-    from pathlib import Path
-
-    base = _crs_cache_dir()
-    if base is None:
-        return None
-    tag = hashlib.sha256(
-        b"crs" + tau.to_bytes(32, "little") + count.to_bytes(8, "little")
-    ).hexdigest()[:24]
-    return Path(base) / f"crs_{tag}_{count}_torch.npy"
+# Above OPEN_SPLIT elements an `open_many` batch runs in sub-groups of
+# OPEN_GROUP jobs, so that at most OPEN_GROUP full-size quotients are in
+# flight (the 2^23-cell ceiling of the JAX package's scale runs)
+OPEN_SPLIT = 1 << 22
+OPEN_GROUP = 4
 
 
 def _tau_from_seed(seed: int) -> int:
@@ -89,69 +68,30 @@ class KZG:
         waste either way; CRS bytes are not transcript material)."""
         if tau is None:
             tau = _tau_from_seed(seed)
-        g1 = curve.g1_generator()
         g2 = curve.g2_generator()
-        # successive powers: g1 * tau^i, computed as repeated scalar products of
-        # the *scalar* (cheap) and one scalar_mul per point
-        powers = [1] * (max_degree + 1)
-        for i in range(1, max_degree + 1):
-            powers[i] = powers[i - 1] * tau % R
-        from ..ec import native_ec
-
-        if native_ec.available():
-            g1_jac = native_ec.scalar_mul_many(g1.to_affine(), powers)
-        else:
-            g1_jac = [g1.scalar_mul(p) for p in powers]
-        g1_points = curve.batch_to_affine(g1_jac)
+        g1_points = curve.g1_tau_powers(tau, max_degree + 1)
         g2_points = [g2, g2.scalar_mul(tau)]
-        return KZG(engine, max_degree, g1_points, g2_points, g1, g2)
+        return KZG(engine, max_degree, g1_points, g2_points,
+                   curve.g1_generator(), g2)
 
     @staticmethod
     def device_setup(engine, max_degree: int, tau: int | None = None,
                      seed: int = 0) -> "KZG":
-        """CRS made on the engine's device (`quill_tpu/pcs/kzg.py:106`):
-        fixed-base tau powers (`ec/fixed_base.py`, kernel J), the same
-        points as `trusted_setup` with the same seed.  The (n, 2, 8) affine
-        tensor is cached on disk (`_crs_cache_dir`); the basis stays on the
-        device and `g1_points` is None."""
-        import os
-
-        import numpy as np
-        import torch
-
-        from ..ec.fixed_base import device_tau_powers
-        from ..ec.msm import TorchBasis
-
+        """CRS made by the engine (`quill_tpu/pcs/kzg.py:106`):
+        `engine.tau_basis`, the same points as `trusted_setup` with the
+        same seed (on the card fixed-base tau powers, kernel J, cached on
+        disk); the basis stays with the engine and `g1_points` is None."""
         if tau is None:
             tau = _tau_from_seed(seed)
-        count = max_degree + 1
-        dev = engine.device
-        path = _crs_cache_path(tau, count)
-        if path is not None and path.exists():
-            xy = torch.from_numpy(np.load(path)).to(dev)
-        else:
-            xy = device_tau_powers(tau, count, dev)
-            if path is not None:
-                try:
-                    path.parent.mkdir(parents=True, exist_ok=True)
-                    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-                    with open(tmp, "wb") as f:
-                        np.save(f, xy.cpu().numpy())
-                    tmp.replace(path)
-                except OSError:
-                    pass
-        basis = TorchBasis(xy=xy, inf=torch.zeros(count, dtype=torch.bool,
-                                                  device=dev), length=count)
-        g1 = curve.g1_generator()
         g2 = curve.g2_generator()
         kzg = KZG.__new__(KZG)
         kzg.engine = engine
         kzg.max_degree = max_degree
-        kzg.g1 = g1
+        kzg.g1 = curve.g1_generator()
         kzg.g2 = g2
         kzg.g1_points = None
         kzg.g2_points = [g2, g2.scalar_mul(tau)]
-        kzg._basis = basis
+        kzg._basis = engine.tau_basis(tau, max_degree + 1)
         return kzg
 
     # -- core ops ------------------------------------------------------------
@@ -173,33 +113,28 @@ class KZG:
 
     def open_many(self, polys_xs: list) -> list:
         """Batch of openings [(poly, x), ...] with no transcript events in
-        between: ALL quotients in one batched device pass
-        (`engine/quotient.py`: kernel M, one host readback for the whole
-        batch), then ALL quotient commitments as one fused multi-MSM
+        between: ALL quotients in one batched pass (`engine.quotient_many`:
+        on the card kernel M, one host readback for the whole batch), then
+        ALL quotient commitments as one fused multi-MSM
         (engine.msm_many).  Proof
         objects are byte-identical to sequential `open` calls.
 
         Residency: the fused path holds every quotient vector (one per
-        job) until the multi-MSM lands.  Above QUILL_KZG_OPEN_SPLIT
-        elements (default 2^22) the batch runs in sub-groups of 4 jobs so
-        at most 4 full-size quotients are ever in flight (the 2^23-cell
-        scale-campaign ceiling); sub-grouping is output-invisible."""
-        import os
-
+        job) until the multi-MSM lands; above OPEN_SPLIT elements the
+        batch runs in sub-groups of OPEN_GROUP jobs.  Sub-grouping is
+        output-invisible."""
         n = len(polys_xs)
-        thr = int(os.environ.get("QUILL_KZG_OPEN_SPLIT", str(1 << 22)))
-        grp = max(1, int(os.environ.get("QUILL_KZG_OPEN_GROUP", "4")))
-        if n > grp and any(self.engine.vec_len(p) >= thr
-                           for p, _ in polys_xs):
+        if n > OPEN_GROUP and any(self.engine.vec_len(p) >= OPEN_SPLIT
+                                  for p, _ in polys_xs):
             out = []
-            for i in range(0, n, grp):
-                out.extend(self.open_many(polys_xs[i:i + grp]))
+            for i in range(0, n, OPEN_GROUP):
+                out.extend(self.open_many(polys_xs[i:i + OPEN_GROUP]))
             return out
         from ..utils.profiling import phase
 
         ys, qs = [], []
         with phase("kzg/quotient"):
-            for y, q in self._quotients(polys_xs):
+            for y, q in self.engine.quotient_many(polys_xs):
                 ys.append(y)
                 qs.append(q)
         with phase("kzg/open_msm"):
@@ -209,31 +144,6 @@ class KZG:
                  for q in qs])
         return [KZGOpeningProof(x=x % R, y=y, proof=c)
                 for (_, x), y, c in zip(polys_xs, ys, comms)]
-
-    def _quotients(self, polys_xs: list) -> list:
-        """(y, q) per opening, input order.  Device vectors with x != 0
-        go, in input order, through `engine.quotient.quotient_many_device`
-        (kernel M on the card, which takes mixed lengths in one launch and
-        splits at MAX_JOBS); everything else takes per-job
-        `engine.quotient_by_linear` (identical results).  The JAX copy
-        groups the device jobs by their count of 2^16-element chunks, for
-        its fixed XLA shapes."""
-        from ..engine.device import TVec
-        from ..engine.quotient import quotient_many_device
-
-        results: list = [None] * len(polys_xs)
-        idxs = []
-        for i, (poly, x) in enumerate(polys_xs):
-            if isinstance(poly, TVec) and int(x) % R != 0:
-                idxs.append(i)
-            else:
-                results[i] = self.engine.quotient_by_linear(poly, x)
-        if idxs:
-            outs = quotient_many_device(self.engine,
-                                        [polys_xs[i] for i in idxs])
-            for i, out in zip(idxs, outs):
-                results[i] = out
-        return results
 
     def commit_many(self, polys: list) -> list:
         """Batch of commitments with no transcript events in between, as
@@ -309,7 +219,7 @@ _SETUP_CACHE: dict = {}
 def _disk_cache_path(max_degree: int, seed: int) -> str | None:
     import os
 
-    d = _crs_cache_dir()
+    d = crs_cache_dir()
     if d is None:
         return None
     os.makedirs(d, exist_ok=True)

@@ -21,7 +21,6 @@ from ..fields.bn254 import R
 from ..fields.scalar import inv
 from ..transcript.transcript import Transcript
 from . import EvaluationClaim
-from .ipa import compute_s_polynomial
 from .kzg import KZG, KZGOpeningProof
 
 
@@ -87,7 +86,7 @@ class MultilinearPCS:
             evaluation = engine.inner(poly, pr)
 
         with phase("mlpcs/s_poly"):
-            s_poly = compute_s_polynomial(engine, poly, pr)
+            s_poly = engine.s_polynomial(poly, pr)
         with phase("mlpcs/s_commit"):
             s_commitment = self.kzg.commit(s_poly)
 
@@ -151,7 +150,7 @@ class MultilinearPCS:
             with phase("mlpcs/inner"):
                 evals.append(engine.inner(poly, pr))
             with phase("mlpcs/s_poly"):
-                s_polys.append(compute_s_polynomial(engine, poly, pr))
+                s_polys.append(engine.s_polynomial(poly, pr))
             key = tuple(x % R for x in point)
             uses[key] -= 1
             if uses[key] == 0:

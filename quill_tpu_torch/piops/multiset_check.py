@@ -106,19 +106,10 @@ def prove(store: Store, h_left: VirtualRef, h_right: VirtualRef,
     m_expr = (store.get_expr(multiplicities) if mode == LookupMode.SUBSET
               else Const(1))
 
-    # release_inputs below is only safe when BOTH h-sides substitute the
-    # materialized u-tables: a nonlinear h keeps its input tables as live
-    # sumcheck inputs, and nulling those store slots would break the
-    # "callers never re-read those slots" contract for whatever tables the
-    # h-expression references (e.g. a nonlinear lookup's source columns).
-    u_substituted = []
-
     def u_side(u_vec, h_ref):
         h_expr = store.get_expr(h_ref)
         if h_expr.degree() <= 1:
-            u_substituted.append(True)
             return store.allocate_polynomial(u_vec).to_expr()
-        u_substituted.append(False)
         return Const(logup_eval_point) + h_expr
 
     zerocheck_expr = (
@@ -138,26 +129,9 @@ def prove(store: Store, h_left: VirtualRef, h_right: VirtualRef,
     store.add_in_place(h_hat, denom_left_ref)
     store.sub_in_place(h_hat, denom_right_ref)
 
-    # HBM relief for huge traces (the rows*cols permutation phase of a
-    # 2^22-row trace is 2^24 cells): the batched sumcheck only reads
-    # {denom_l, denom_r, u_l, u_r, eq}, so the h-side input tables
-    # (witness / id / perm) can sit in host RAM until the openings.  The
-    # caller (proof/hyperplonk.py) un-spills what it opens afterwards.
-    import os as _os
-
-    spill = getattr(engine, "spill_vec", None)
-    if (spill is not None and num_vars
-            >= int(_os.environ.get("QUILL_SPILL_MIN_VARS", "23"))):
-        used = set(store.get_expr(h_hat).used_inputs())
-        with phase("multiset/spill"):
-            for idx, vec in enumerate(store.polynomials):
-                if idx not in used:
-                    spill(vec)
-
     with phase("multiset/sumcheck"):
         sumcheck_proof, sc_claim = sumcheck.prove(
-            num_vars, store, h_hat, 0, transcript,
-            release_inputs=all(u_substituted))
+            num_vars, store, h_hat, 0, transcript)
     evaluation_point = sc_claim.point
 
     with phase("multiset/opens"):

@@ -90,18 +90,9 @@ class SumcheckProof:
 
 
 def prove(num_vars: int, store: Store, h: VirtualRef, claimed_sum: int,
-          transcript: Transcript, release_inputs: bool = False
-          ) -> tuple[SumcheckProof, EvaluationClaim]:
+          transcript: Transcript) -> tuple[SumcheckProof, EvaluationClaim]:
     """`SumcheckProof::prove` (`sumcheck.rs:28-114`).  Binds the LSB variable
-    each round; appends each round message then draws the challenge.
-
-    release_inputs: explicit caller opt-in to drop the store's references
-    to the used input tables for the duration of the prove, letting the
-    full-size originals free as soon as the first fold replaces them.  Only
-    pass True when the caller never re-reads those store slots afterwards
-    (zerocheck / multiset_check do not -- the denominators they open later
-    are separate locals).  Effective only on engines with HBM spill and at
-    sizes where HBM is the binding constraint (QUILL_SC_RELEASE_MIN_VARS)."""
+    each round; appends each round message then draws the challenge."""
     engine = store.engine
     transcript.append_usize(num_vars)
     transcript.append_field(claimed_sum % R)
@@ -116,25 +107,13 @@ def prove(num_vars: int, store: Store, h: VirtualRef, claimed_sum: int,
     for i in used:
         tables[i] = store.polynomials[i]
 
-    import os as _os
-
-    if (release_inputs and hasattr(engine, "spill_vec") and num_vars
-            >= int(_os.environ.get("QUILL_SC_RELEASE_MIN_VARS", "23"))):
-        for i in used:
-            store.polynomials[i] = None
-
     output_r_polys: list[list[int]] = []
     evaluation_point: list[int] = []
 
-    begin = getattr(engine, "sumcheck_begin", None)
     for _round in range(num_vars):
         if _round == 0:
-            if begin is not None:
-                # may convert tables to the engine's round-loop
-                # representation (e.g. the 8-bit stacked device state)
-                tables, msg_evals = begin(tables, expr, degree)
-            else:
-                msg_evals = engine.sumcheck_messages(tables, expr, degree)
+            # may convert tables to the engine's round-loop representation
+            tables, msg_evals = engine.sumcheck_begin(tables, expr, degree)
         else:
             # fused: fold at the previous challenge + this round's messages
             # in one device pass

@@ -36,11 +36,9 @@ class ZeroCheckProof:
     sumcheck_proof: sumcheck.SumcheckProof
 
 
-def prove(store: Store, h: VirtualRef, transcript: Transcript,
-          release_inputs: bool = False
+def prove(store: Store, h: VirtualRef, transcript: Transcript
           ) -> tuple[ZeroCheckProof, EvaluationClaim]:
-    """`ZeroCheckProof::prove` (`zerocheck.rs:14-49`).  `release_inputs` is
-    forwarded to the sumcheck (see `sumcheck.prove`)."""
+    """`ZeroCheckProof::prove` (`zerocheck.rs:14-49`)."""
     num_vars = store.num_vars
     random_point = [transcript.draw_field_element() for _ in range(num_vars)]
 
@@ -54,8 +52,7 @@ def prove(store: Store, h: VirtualRef, transcript: Transcript,
 
     with phase("zerocheck/sumcheck"):
         sumcheck_proof, sc_claim = sumcheck.prove(num_vars, store, h_hat, 0,
-                                                  transcript,
-                                                  release_inputs=release_inputs)
+                                                  transcript)
 
     e = eq_eval(random_point, sc_claim.point)
     claim = EvaluationClaim(

@@ -230,7 +230,7 @@ class HyperPlonk:
 
         with phase("prove/zerocheck"):
             zero_check_proof, zc_claim = zerocheck.prove(
-                store, zero_check_virtual, transcript, release_inputs=True)
+                store, zero_check_virtual, transcript)
 
         # permutation check on the whole trace as one polynomial
         # (`proof.rs:183-196`)
@@ -446,18 +446,14 @@ def _open_grouped(pcs, items: list, transcript) -> list:
     path, capped at 4 above 2^22 elements by `kzg.open_many`'s sub-group
     split.  So: ~bs+4 full vectors at scale, ~5*bs below the split
     (bs=8 at 2^20 = ~40 x 88 MB = 3.5 GB, fine beside the ~2-3 GB
-    resident bases on a 16 GB chip).  Defaults: 8 opens per group up to
-    2^20-element polys, 2 above (the 2^23-cell scale campaign ceiling);
-    QUILL_OPEN_BATCH overrides.  Group boundaries are
-    transcript-invisible (the fused pipeline is byte-identical to
-    sequential opens)."""
-    import os
-
+    resident bases on a 16 GB chip).  8 opens per group up to
+    2^20-element polys, 2 above (the 2^23-cell scale campaign ceiling).
+    Group boundaries are transcript-invisible (the fused pipeline is
+    byte-identical to sequential opens)."""
     if not items:
         return []
     num_vars = max(len(point) for _, point in items)
-    default = 8 if num_vars <= 20 else 2
-    bs = max(1, int(os.environ.get("QUILL_OPEN_BATCH", str(default))))
+    bs = 8 if num_vars <= 20 else 2
     out = []
     for i in range(0, len(items), bs):
         out.extend(pcs.open_many(items[i:i + bs], transcript))
@@ -469,10 +465,8 @@ def _column_views(engine, full, rows: int, cols: int) -> list | None:
     as a view that shares `full`'s storage, for each column; None where
     the engine has no such views or the columns are below its device
     size (they are then converted from the witness as host vectors)."""
-    view = getattr(engine, "view", None)
-    if view is None:
-        return None
-    views = [view(full, c * rows, (c + 1) * rows) for c in range(cols)]
+    views = [engine.view(full, c * rows, (c + 1) * rows)
+             for c in range(cols)]
     return None if any(v is None for v in views) else views
 
 

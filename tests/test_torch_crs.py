@@ -8,6 +8,7 @@ twin on the CPU, and `KZG.device_setup`) against the JAX package.
   table and over a 5-bit one; a zero scalar, the identity there, raises;
 - `KZG.device_setup` gives the G1 and G2 points of the JAX package's
   `KZG.trusted_setup` with the same seed, and reads its disk cache back;
+  on the port's HostEngine (`tau_basis` from the host) the same points;
 - `convert.from_device_basis` carries a JAX basis with `affines=None` and
   lazy limbs (as `device_tau_powers` leaves them) into a `TorchBasis`.
 
@@ -120,6 +121,23 @@ def test_device_setup_matches_jax_trusted_setup(tmp_path, monkeypatch):
         assert [_g2(q) for q in kzg.g2_points] == \
             [_g2(q) for q in want.g2_points]
     assert len(list(tmp_path.iterdir())) == 1
+
+
+def test_device_setup_on_the_host_engine_matches_jax(tmp_path, monkeypatch):
+    from quill_tpu.engine.host import HostEngine
+    from quill_tpu.pcs.kzg import KZG as JaxKZG
+
+    from quill_tpu_torch.engine.host import HostEngine as PortHost
+
+    monkeypatch.setenv("QUILL_CRS_CACHE_DIR", str(tmp_path))
+    n = 1 << 6
+    want = JaxKZG.trusted_setup(HostEngine(), n)
+    kzg = KZG.device_setup(PortHost(), n)
+    assert kzg.g1_points is None and kzg.max_degree == n
+    assert [(p.x.v, p.y.v) for p in kzg._basis] == \
+        [(p.x.v, p.y.v) for p in want.g1_points]
+    assert [_g2(q) for q in kzg.g2_points] == [_g2(q) for q in want.g2_points]
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_from_device_basis_lazy_chunks():

@@ -740,12 +740,9 @@ def test_kernel_m_mixed_batch_one_launch(dev):
     coefficients and x = 0 among them: kernel M takes the x != 0 jobs in
     one launch (the JAX copy's grouping would take three), each equal to
     the plain twin and the host."""
-    import types
-
     from quill_tpu_torch.engine import quotient as Q
     from quill_tpu_torch.engine.device import TorchEngine
     from quill_tpu_torch.engine.host import HostEngine
-    from quill_tpu_torch.pcs.kzg import KZG
 
     eng = TorchEngine("cuda", min_device_size=1)
     lengths = [(1 << 16) + 5, 3000, (2 << 16) + 9, 7, 1 << 17]
@@ -754,7 +751,7 @@ def test_kernel_m_mixed_batch_one_launch(dev):
     cs = [_rand(n, dev) for n in lengths]
     jobs = [(eng._wrap(c, n), x) for c, n, x in zip(cs, lengths, xs)]
     before = build.LAUNCHES["quotient"]
-    got = KZG._quotients(types.SimpleNamespace(engine=eng), jobs)
+    got = eng.quotient_many(jobs)
     assert build.LAUNCHES["quotient"] == before + 1
     dev_jobs = [j for j in jobs if j[1] != 0]
     for (y, q), (y2, q2) in zip([g for g, j in zip(got, jobs) if j[1]],

@@ -5,7 +5,15 @@ the JAX package holds its own device engine to (modelled on
 The engine runs on the CPU with `min_device_size=1`, so every method takes
 its device path: plain torch ops here, the same code that runs on the GPU
 around kernels A to D.  Sizes 2^10 to 2^12.
+
+The engine contract (`engine/contract.py`): the port's HostEngine and
+TorchEngine define each of its methods with its parameter names, and the
+protocol layers above the engine reach the device only through it.
 """
+
+import inspect
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -15,6 +23,8 @@ from quill_tpu.engine.host import HostEngine
 from quill_tpu.fields.bn254 import R
 from quill_tpu.piops import virtual_poly as jax_vp
 
+from quill_tpu_torch.engine import contract
+from quill_tpu_torch.engine import host as port_host
 from quill_tpu_torch.engine.device import TVec, TorchEngine
 from quill_tpu_torch.piops import virtual_poly as port_vp
 
@@ -141,3 +151,67 @@ def test_handoff_by_size(data):
     assert [int(x) for x in ff] == [int(x) for x in host.fold(
         host.fold(host.vec_from_ints(a[:128]), 5), 7)]
     assert not isinstance(eng.eq_table([1, 2, 3]), TVec)
+
+
+def _params(fn) -> list[str]:
+    return list(inspect.signature(fn).parameters)
+
+
+@pytest.mark.parametrize("engine", [port_host.HostEngine(),
+                                    TorchEngine("cpu")],
+                         ids=["host", "torch"])
+def test_engines_define_the_contract(engine):
+    methods = [n for n, f in vars(contract.Engine).items()
+               if inspect.isfunction(f) and not n.startswith("_")]
+    assert len(methods) >= 34
+    for name in methods:
+        assert callable(getattr(type(engine), name, None)), name
+        assert (_params(getattr(type(engine), name))
+                == _params(getattr(contract.Engine, name))), name
+
+
+PROTOCOL = ("piops", "pcs", "proof", "frontend", "transcript")
+FORBIDDEN = re.compile(
+    r"import torch|TVec|\.rows\(\)|engine\.(device|quotient)\b"
+    r"|(getattr|hasattr)\(engine\b")
+
+
+def test_protocol_layers_know_only_the_contract():
+    """No module above the engine imports torch, names a device vector or
+    the device engine's modules, or probes an engine for a method."""
+    pkg = pathlib.Path(contract.__file__).parents[1]
+    found = [f"{path.relative_to(pkg)}:{i}: {line.strip()}"
+             for layer in PROTOCOL
+             for path in sorted((pkg / layer).glob("*.py"))
+             for i, line in enumerate(path.read_text().splitlines(), 1)
+             if FORBIDDEN.search(line)]
+    assert found == []
+    engine_dir = pkg / "engine"
+    assert not [p for p in engine_dir.glob("*.py")
+                if re.search(r"from \.\.pcs\b", p.read_text())]
+
+
+def test_first_nonzero_matches_host(engines, data):
+    """Vectors with their first non-zero at 0, in the middle and nowhere,
+    and state pairs (a, b) with their first a[i] != b[i + 1] at 0, in the
+    middle and nowhere, on both engines."""
+    eng, _ = engines
+    host = port_host.HostEngine()
+    a, _ = data
+    zero = [0] * N
+    mid = list(zero)
+    mid[N // 2 + 3] = a[7] or 1
+    shifted = [0] + a[:-1]                  # shifted[i + 1] == a[i]
+    broken = list(shifted)
+    broken[N // 3 + 1] = (broken[N // 3 + 1] + 1) % R
+    vecs = [a, mid, zero]
+    pairs = [(a, a), (a, broken), (a, shifted)]
+    got = eng.first_nonzero([eng.vec_from_ints(v) for v in vecs],
+                            [(eng.vec_from_ints(x), eng.vec_from_ints(y))
+                             for x, y in pairs])
+    want = host.first_nonzero([host.vec_from_ints(v) for v in vecs],
+                              [(host.vec_from_ints(x), host.vec_from_ints(y))
+                               for x, y in pairs])
+    assert got == want
+    assert want[1:3] == [N // 2 + 3, None]
+    assert want[4:] == [N // 3, None]

@@ -6,12 +6,10 @@
   interpreter that imports neither jax nor any module of `quill_tpu`, and
   takes the default MSM routes (the small route, at this size); the second
   sends every MSM through kernels C and D.
-- A 2^9-row Fibonacci proof with `min_device_size=64` (tables and folds on
-  both sides of the handoff, MSMs on kernels C and D) is byte-identical to
-  the JAX package's HostEngine proof.
 
-The circuits are built twice, from the port's modules and from the JAX
-package's, by the same code.
+`fibonacci` and `modified_fibonacci` build a circuit from the port's
+modules or, given them, from the JAX package's, by the same code; the
+other test files of whole proofs take them from here.
 """
 
 import hashlib
@@ -33,21 +31,12 @@ from quill_tpu_torch.proof import hyperplonk as port_hp
 from quill_tpu_torch.utils import proof_io
 
 # This module loads nothing of jax or quill_tpu when it is imported: the
-# subprocess below imports `fibonacci` from it.  The tests import the JAX
-# package where they use it.
+# subprocess below imports `fibonacci` from it.
 
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = (port_tc, port_vp, port_hp)
-
-
-def jax_package():
-    from quill_tpu.frontend import transition_circuit
-    from quill_tpu.piops import virtual_poly
-    from quill_tpu.proof import hyperplonk
-
-    return transition_circuit, virtual_poly, hyperplonk
 
 
 def golden(name: str):
@@ -144,21 +133,6 @@ def port_prove_bytes(engine, circuit, trace) -> bytes:
     return proof_io.serialize_proof(proof)
 
 
-def host_prove_bytes(circuit, trace) -> bytes:
-    from quill_tpu.engine.host import HostEngine
-    from quill_tpu.pcs.kzg import cached_trusted_setup
-    from quill_tpu.pcs.mlpcs import MultilinearPCS as JaxPCS
-    from quill_tpu.proof import hyperplonk
-    from quill_tpu.utils import proof_io as jax_io
-
-    pcs = JaxPCS(cached_trusted_setup(
-        HostEngine(), circuit.num_cols() * circuit.num_rows()))
-    hp = hyperplonk.HyperPlonk.preprocess([circuit], pcs)
-    proof = hp.prove([trace])
-    hyperplonk.verify(proof, hp.to_vk(), pcs, batch_pairings=True)
-    return jax_io.serialize_proof(proof)
-
-
 @pytest.fixture(scope="module")
 def port_run():
     env = dict(os.environ)
@@ -191,13 +165,3 @@ def test_modified_fibonacci_proof_bytes_golden():
     want_hash, want_len = golden("fib2")
     assert len(data) == want_len
     assert hashlib.sha256(data).hexdigest() == want_hash
-
-
-def test_handoff_proof_matches_host():
-    """Its MSMs take kernels C and D: the small route's plain twins, at
-    2^11-point bases, would take minutes on a CPU."""
-    port = port_prove_bytes(
-        TorchEngine("cpu", min_device_size=64, msm_small_chunks=0),
-        *fibonacci(1 << 9))
-    host = host_prove_bytes(*fibonacci(1 << 9, jax_package()))
-    assert port == host

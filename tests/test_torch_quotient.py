@@ -10,7 +10,7 @@ M's plain twin and its host emulation) against the JAX package.
 - batches of two jobs against JAX `HostEngine.quotient_by_linear` at odd
   lengths across kernel M's tiles (4,096 coefficients; the JAX call above
   covers a whole chunk);
-- `KZG._quotients` sends device vectors with x != 0 through
+- `TorchEngine.quotient_many` sends device vectors with x != 0 through
   `quotient_many_device`, all in one call in input order (split at
   MAX_JOBS inside it), and x = 0 and host vectors through
   `quotient_by_linear`; `KZG.open_many` gives the JAX host prover's
@@ -22,7 +22,6 @@ M's plain twin and its host emulation) against the JAX package.
 
 import ctypes
 import shutil
-import types
 
 import numpy as np
 import pytest
@@ -110,7 +109,7 @@ def test_matches_host_at_odd_lengths(n):
 
 
 def _route(eng, lengths, xs, monkeypatch):
-    """KZG._quotients on the given jobs -> (the lengths of each
+    """`eng.quotient_many` on the given jobs -> (the lengths of each
     quotient_many_device call, the per-job calls), every result checked
     against the host."""
     batches, single = [], []
@@ -128,7 +127,7 @@ def _route(eng, lengths, xs, monkeypatch):
     monkeypatch.setattr(eng, "quotient_by_linear", one)
     polys = [_ints(30 + i, n) for i, n in enumerate(lengths)]
     jobs = [(eng.vec_from_ints(p), x) for p, x in zip(polys, xs)]
-    got = KZG._quotients(types.SimpleNamespace(engine=eng), jobs)
+    got = eng.quotient_many(jobs)
     for p, x, (y, q) in zip(polys, xs, got):
         wy, wq = _host_quotient(p, x)
         assert y == wy

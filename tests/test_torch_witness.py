@@ -298,7 +298,7 @@ def _spy_commits(monkeypatch, pcs, name: str) -> list:
 def _stop_at_zerocheck(monkeypatch) -> list:
     stores = []
 
-    def at_zerocheck(store, h, transcript, release_inputs=False):
+    def at_zerocheck(store, h, transcript):
         stores.append(list(store.polynomials))
         raise Stop
 
